@@ -1,31 +1,42 @@
 """GPU smoke of the PyTorch/CUDA port: builds the kernels, holds each against
 its plain version, and drives the tiered serving loop at the full width of
-``qwen1_5_4b`` on one GPU.
+``qwen1_5_4b`` on one GPU, serially and on the default async media path.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card's name and power limit, build the three CUDA kernels;
+  1. print the card's name and power limit, build the five CUDA kernels (one
+     ``nvcc`` per source, all started together);
   2. each kernel vs its plain version on the card at the serving path's
-     full-width shapes (T=16, KV=20, hd=128; quant/transcode byte-equal,
-     fused attention within 2e-4);
+     full-width shapes (T=16, KV=20, hd=128; quant/transcode/dequant
+     byte-equal, fused and per-pool attention within 2e-4, the per-pool one
+     with an empty pool and tails past ``n_pages``);
   3. the full-width engine (40 layers, random bf16 weights from a seed)
-     serves 3 requests through ``TieredEngine.submit``/``run`` with serial
-     migration; the launch counts prove every decode layer ran the fused
-     kernel and that page-out and migration ran the quant and transcode
-     kernels;
-  4. mid-run, one tiered decode step twice on the same state: kernel vs
-     plain branch (logits and per-page hotness);
+     serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
+     first with serial migration (the blocking executor; at policy weight
+     alpha 0.5, then at the async run's), then on the default path
+     (async migration + prefetch). Launch counts, reset before and read
+     after each path, prove every decode layer ran the fused kernel and that
+     page-out, migration and the host sentinels ran the quant, transcode and
+     dequant kernels (as often as the cache called them); a few steps under
+     ``ops.use_fused(False)`` drive the per-pool kernel (2 launches per layer);
+  3b. at reduced depth and full width, the cache's serial and async
+     executors land bit-identical placements and payloads, with prefetch on
+     and off, and under a ``seeded_storm`` fault plan;
+  4. mid-run, one tiered decode step on the same state: kernel vs plain
+     branch, and the per-pool step vs the fused step (logits, hotness);
   5. each kernel held to its plain version again and timed at the shapes
-     the run gave it (attention: the live mid-run state), their bounds, the
-     engine's decode/prefill/window times, tokens/s and peak memory, and a
-     profile of one decode step (device time by kernel, busy share).
+     the run gave it, their bounds, both engines' decode/prefill/window
+     times, tokens/s and peak memory, and a profile of one decode step.
+Media busy seconds in the engine are modeled time from the catalog's
+parameters, not measurements of this card; they are not printed.
 The last line is the JSON result ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -39,11 +50,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs import TierScapeRunConfig, get  # noqa: E402
+from repro_torch.core.manager import ManagerConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.kernels import quant_page, transcode_page  # noqa: E402
+from repro_torch.media.faults import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
+from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import TieredEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -53,12 +67,21 @@ ATTN_TOL = 2e-4
 SEED = 0
 DEV = "cuda"
 T, R, PAGE_LAYERS = 16, 32, 40
+# The analytical policy's TCO weight on the default path: low enough that
+# pages reach the host tiers (so sentinels, swap-ins and prefetch run).
+ASYNC_ALPHA = 0.1
+PER_POOL_STEPS = 4  # decode steps driven under ops.use_fused(False)
+MODES_LAYERS = 4  # depth of the phase-3b executor comparison
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
     "quant_pages": ("src/repro_torch/csrc/quant_page.cu", "src/repro/kernels/quant_page.py:39"),
     "transcode_pages": ("src/repro_torch/csrc/transcode_page.cu",
                         "src/repro/kernels/transcode_page.py:62"),
+    "dequant_pages": ("src/repro_torch/csrc/dequant_page.cu",
+                      "src/repro/kernels/dequant_page.py:35"),
+    "paged_quant_attention": ("src/repro_torch/csrc/paged_quant_attention.cu",
+                              "src/repro/kernels/paged_attention.py:183"),
 }
 
 
@@ -188,6 +211,44 @@ def check_attention(operands) -> float:
     return err
 
 
+def check_dequant(pay, sc, bits, out_dtype) -> float:
+    got = dequant_page.dequant_pages(pay, sc, bits, out_dtype)
+    want = dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)
+    torch.cuda.synchronize()
+    if got.dtype != out_dtype or not torch.equal(got, want):
+        fail(f"dequant_pages int{bits} -> {out_dtype}: differs from the plain version in "
+             f"{int((got != want).sum())} elements")
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_paged(args) -> float:
+    got = pa.paged_quant_attention(*args)
+    want = ref.paged_quant_attention(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, w in zip(("out", "m", "l", "mass", "base"), got, want):
+        if not torch.isfinite(a).all():
+            fail(f"paged_quant_attention: non-finite {name}")
+        torch.testing.assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL, msg=lambda m: f"{name}: {m}")
+        err = max(err, float((a - w).abs().max()))
+    return err
+
+
+def pool_operands(g, b, h, kv, hd, mp, bits, n_valid):
+    """One pool of 4*mp rows at the engine's page shape, a random table and
+    the valid prefix lengths ``n_valid`` (tails past them stay in the table)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    rows = 4 * mp
+    kp, ks = ref.quant_kv_page(rn(rows, T, kv, hd), bits)
+    vp, vs = ref.quant_kv_page(rn(rows, T, kv, hd) * 0.5, bits)
+    q = rn(b, h, hd).to(torch.bfloat16)
+    table = torch.randint(0, rows, (b, mp), generator=g, device=DEV, dtype=torch.int32)
+    n = torch.tensor(n_valid, dtype=torch.int32, device=DEV)
+    return (q, kp, ks, vp, vs, table, n, bits)
+
+
 def phase_compare(cfg) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED)
     kv, hd, h = cfg.n_kv_heads, cfg.head_dim_(), cfg.n_heads
@@ -195,130 +256,167 @@ def phase_compare(cfg) -> dict:
     # Page-out of a 512-token prompt: K and V of 40 layers x 31 pages.
     pages = torch.randn((2 * PAGE_LAYERS * 31, T, kv, hd), generator=g, device=DEV)
     errs["quant_pages"] = max(check_quant(pages, 8), check_quant(pages, 4))
-    # A migration cohort: K and V of 40 layers x 8 pages, both directions.
-    e = 0.0
+    # A migration cohort: K and V of 40 layers x 8 pages, both directions;
+    # the same cohort's host sentinels (f32) and per-page fetches (bf16).
+    e = d = 0.0
     for src, dst in ((8, 4), (4, 8)):
         pay, sc = ref.quant_kv_page(pages[: 2 * PAGE_LAYERS * 8], src)
         e = max(e, check_transcode(pay, sc, src, dst))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            d = max(d, check_dequant(pay, sc, src, out_dtype))
     errs["transcode_pages"] = e
+    errs["dequant_pages"] = d
     del pages
     mp = 1024 // T  # the engine's max pages per sequence
     errs["fused_tiered_attention"] = check_attention(attention_operands(g, 2, h, kv, hd, mp))
+    # Per-pool partials: int8 and int4 pools with tails past n_pages, and an
+    # empty pool (m = l = 0).
+    errs["paged_quant_attention"] = max(
+        check_paged(pool_operands(g, 2, h, kv, hd, mp, 8, [40, 7])),
+        check_paged(pool_operands(g, 2, h, kv, hd, mp, 4, [60, 25])),
+        check_paged(pool_operands(g, 2, h, kv, hd, mp, 8, [0, 0])),
+    )
     log(f"phase 2 ok: kernels match their plain versions, max abs err {errs}")
     return errs
 
 
 # ---------------------------------------------------------------- phase 3-4
-class ShapeSpy:
-    """Records the largest operand shape the engine hands a dispatch
-    function (so phase 5 times each kernel at the serving path's own
-    shapes); it keeps no tensor alive."""
+class Spy:
+    """Wraps an ops dispatch function: counts the calls the cache makes
+    (for ``transcode_pages`` only those that change the codec width, the
+    ones that launch) and records the largest operand shape, so phase 5
+    times each kernel at the serving path's own shapes. Keeps no tensor."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, launches=lambda args: True):
         self.fn = fn
+        self.launches = launches
+        self.calls = 0
         self.largest = None  # (numel, shape, dtype, other args)
 
     def __call__(self, x, *args):
+        if self.launches(args):
+            self.calls += 1
         if self.largest is None or x.numel() > self.largest[0]:
             self.largest = (x.numel(), tuple(x.shape), x.dtype, args)
         return self.fn(x, *args)
 
 
-def step_compare(eng: TieredEngine) -> dict:
-    """One decode step on the engine's live state, kernel branch vs plain
-    branch. Logits: the bf16 activations round the attention output, so one
-    f32-ulp difference in a kernel output can flip a bf16 rounding and
-    compound over 40 layers; the bar is 2% of the logits' largest magnitude.
-    Hotness (normalized per-page mass) is held to 2e-4."""
+SPIED = ("quant_pages", "transcode_pages", "dequant_pages")
+
+
+def install_spies() -> dict:
+    spies = {"quant_pages": Spy(ops.quant_pages),
+             "transcode_pages": Spy(ops.transcode_pages, lambda a: a[1] != a[2]),
+             "dequant_pages": Spy(ops.dequant_pages)}
+    for name, spy in spies.items():
+        setattr(ops, name, spy)
+    return spies
+
+
+def remove_spies(spies) -> None:
+    for name, spy in spies.items():
+        setattr(ops, name, spy.fn)
+
+
+def reset_counts(spies) -> None:
+    build.reset_launch_counts()
+    for spy in spies.values():
+        spy.calls = 0
+
+
+def read_counts(spies) -> dict:
+    out = build.launch_counts()
+    out.update({f"{n}_calls": spies[n].calls for n in SPIED})
+    return out
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def step_tokens(eng: TieredEngine) -> torch.Tensor:
     tokens = torch.zeros((eng.bs, 1), dtype=torch.int64, device=DEV)
     for i, req in enumerate(eng.slots):
         if req is not None and req.out_tokens:
             tokens[i, 0] = req.out_tokens[-1]
-    st = eng.cache.state
+    return tokens
+
+
+def _compare_steps(lk, lp, hk, hp, what: str) -> dict:
+    """Logits: the bf16 activations round the attention output, so one
+    f32-ulp difference can flip a bf16 rounding and compound over 40 layers;
+    the bar is 2% of the logits' largest magnitude. Hotness (normalized
+    per-page mass) is held to 2e-4."""
+    lk, lp = lk.float(), lp.float()
+    if not torch.isfinite(lk).all():
+        fail(f"{what}: logits are not finite")
+    scale = float(lp.abs().max())
+    dl = float((lk - lp).abs().max())
+    if dl > 0.02 * scale:
+        fail(f"{what}: logits differ by {dl} (> 2% of {scale})")
+    dh = {}
+    for name in ("warm", "cold", "host"):
+        torch.testing.assert_close(hk[name], hp[name], rtol=ATTN_TOL, atol=ATTN_TOL,
+                                   msg=lambda m: f"{what} hotness[{name}]: {m}")
+        dh[name] = float((hk[name] - hp[name]).abs().max())
+    same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+    log(f"phase 4 ok: {what}: logits max diff {dl:.4g} (max |logit| {scale:.4g}), "
+        f"greedy tokens equal {same}, hotness max diff {dh}")
+    return {"logits_max_diff": dl, "hotness_max_diff": dh, "greedy_equal": same}
+
+
+def step_compare(eng: TieredEngine) -> dict:
+    """One decode step on the engine's live state, kernel branch vs plain
+    branch."""
+    tokens, st = step_tokens(eng), eng.cache.state
     k_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
     p_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=False, device=DEV)
     lk, _, _, hk = k_step(eng.params, tokens, st, None)
     lp, _, _, hp = p_step(eng.params, tokens, st, None)
     torch.cuda.synchronize()
-    lk, lp = lk.float(), lp.float()
-    if not torch.isfinite(lk).all():
-        fail("kernel-branch logits are not finite")
-    scale = float(lp.abs().max())
-    dl = float((lk - lp).abs().max())
-    if dl > 0.02 * scale:
-        fail(f"decode-step logits: kernel vs plain differ by {dl} (> 2% of {scale})")
-    dh = {}
-    for name in ("warm", "cold", "host"):
-        torch.testing.assert_close(hk[name], hp[name], rtol=ATTN_TOL, atol=ATTN_TOL,
-                                   msg=lambda m: f"hotness[{name}]: {m}")
-        dh[name] = float((hk[name] - hp[name]).abs().max())
-    same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
-    log(f"phase 4 ok: step kernel vs plain: logits max diff {dl:.4g} (max |logit| "
-        f"{scale:.4g}), greedy tokens equal {same}, hotness max diff {dh}")
-    return {"logits_max_diff": dl, "hotness_max_diff": dh}
+    return _compare_steps(lk, lp, hk, hp, "step kernel vs plain")
 
 
-def phase_engine(cfg):
-    model = Model(cfg, device=DEV)
-    t0 = time.perf_counter()
-    params = model.init(SEED)
-    torch.cuda.synchronize()
-    log(f"init {cfg.name}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params, "
-        f"{time.perf_counter() - t0:.1f} s")
-    ts = TierScapeRunConfig(enabled=True, window_steps=16, async_migration=False,
-                            prefetch=False, faults=False)
-    torch.cuda.reset_peak_memory_stats()
-    eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
-                       recent_window=R, ts=ts, device=DEV)
-    rng = np.random.default_rng(SEED)
-    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, int(n)), max_new_tokens=48)
-            for n in rng.integers(400, 601, 3)]
-    spies = {"quant_pages": ShapeSpy(ops.quant_pages),
-             "transcode_pages": ShapeSpy(ops.transcode_pages)}
-    ops.quant_pages, ops.transcode_pages = spies["quant_pages"], spies["transcode_pages"]
-
-    build.reset_launch_counts()
-    t0 = time.perf_counter()
-    eng.run(max_steps=40)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+def per_pool_compare(eng: TieredEngine) -> dict:
+    """The per-pool step (``use_fused(False)``: one ``paged_quant_attention``
+    launch per pool and layer) vs the fused step on the same state."""
+    tokens, st = step_tokens(eng), eng.cache.state
+    step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    lf, _, _, hf = step(eng.params, tokens, st, None)
     before = build.launch_counts()
-    step = step_compare(eng)
-    # Phase 5 times the attention kernel on this mid-run state: keep its
-    # tables and recent window (the class buffers are shared and stay valid).
-    st = eng.cache.state
-    state_for_timing = dataclasses.replace(st, **{
-        f: getattr(st, f).clone() for f in (
-            "warm_table", "warm_n", "cold_table", "cold_n", "host_table", "host_n",
-            "recent_k", "recent_v", "recent_len")})
-    compare_launches = {k: v - before[k] for k, v in build.launch_counts().items()}
-    t0 = time.perf_counter()
-    stats = eng.run()
-    forced = False
-    if build.launch_counts()["transcode_pages"] - compare_launches["transcode_pages"] == 0:
-        forced = force_migration(eng)
-    torch.cuda.synchronize()
-    wall += time.perf_counter() - t0
-    counts = {k: v - compare_launches[k] for k, v in build.launch_counts().items()}
-    peak = torch.cuda.max_memory_allocated()
-    ops.quant_pages, ops.transcode_pages = spies["quant_pages"].fn, spies["transcode_pages"].fn
+    try:
+        ops.use_fused(False)
+        lpp, _, _, hpp = step(eng.params, tokens, st, None)
+        torch.cuda.synchronize()
+    finally:
+        ops.use_fused(True)
+    launched = {k: v - before[k] for k, v in build.launch_counts().items()}
+    if launched["paged_quant_attention"] != 2 * eng.la or launched["fused_tiered_attention"]:
+        fail(f"per-pool step launched {launched}, expected 2 x {eng.la} paged_quant_attention")
+    out = _compare_steps(lpp, lf, hpp, hf, "per-pool step vs fused step")
+    out["launches"] = launched["paged_quant_attention"]
+    return out
 
-    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == 48 for r in reqs):
-        fail(f"not every request completed: {stats.completed}/3")
-    if counts["fused_tiered_attention"] != cfg.n_layers * stats.steps:
-        fail(f"fused_tiered_attention launched {counts['fused_tiered_attention']} times, "
-             f"expected {cfg.n_layers} x {stats.steps} decode steps")
-    if counts["quant_pages"] < 1 or counts["transcode_pages"] < 1:
-        fail(f"page-out/migration kernels not on the path: {counts}")
-    if stats.attn_launches != counts["fused_tiered_attention"]:
-        fail(f"billed attention launches {stats.attn_launches} != counted {counts}")
+
+def submit_requests(eng: TieredEngine, cfg) -> list:
+    rng = np.random.default_rng(SEED)
+    return [eng.submit(rng.integers(1, cfg.vocab_size, int(n)), max_new_tokens=48)
+            for n in rng.integers(400, 601, 3)]
+
+
+def engine_metrics(stats, reqs, wall, peak, steps=None, decode_s=None) -> dict:
+    steps = stats.steps if steps is None else steps
+    decode_s = stats.decode_s if decode_s is None else decode_s
     gen = sum(len(r.out_tokens) for r in reqs)
-    eng_metrics = {
-        "decode_steps": stats.steps,
+    return {
+        "decode_steps": steps,
         "windows": stats.windows,
         "migrations": stats.migrations,
-        "forced_migration": forced,
-        "decode_ms_per_step": stats.decode_s / stats.steps * 1e3,
+        "overlapped_steps": stats.overlapped_steps,
+        "prefetch_staged": stats.prefetch_staged,
+        "prefetch_hits": stats.prefetch_hits,
+        "prefetch_misses": stats.prefetch_misses,
+        "decode_ms_per_step": decode_s / steps * 1e3,
         "prefill_ms_per_request": stats.prefill_s / len(reqs) * 1e3,
         "window_ms_per_boundary": stats.window_s / max(stats.windows, 1) * 1e3,
         "tokens_per_s": gen / wall,
@@ -328,16 +426,163 @@ def phase_engine(cfg):
         "tco_savings_pct": stats.tco_savings_pct,
         "prompt_lens": [len(r.prompt) for r in reqs],
     }
-    log(f"phase 3 ok: {json.dumps(eng_metrics)}; launches {counts}")
-    return eng, counts, eng_metrics, spies, state_for_timing, step
+
+
+def check_counts(counts: dict, what: str) -> None:
+    """No plain version ran on the path: every cache call of a kernel's
+    dispatch launched the kernel."""
+    for n in SPIED:
+        if counts[n] != counts[f"{n}_calls"]:
+            fail(f"{what}: {n} launched {counts[n]} times for {counts[f'{n}_calls']} calls")
+
+
+def phase_serial(cfg, model, params, alpha: float = 0.5, compare: bool = True):
+    """The serial path: blocking migration, prefetch off (at alpha 0.5, and
+    again at the async run's alpha, to compare the modes)."""
+    ts = TierScapeRunConfig(enabled=True, alpha=alpha, window_steps=16, async_migration=False,
+                            prefetch=False, faults=False)
+    torch.cuda.reset_peak_memory_stats()
+    eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                       recent_window=R, ts=ts, device=DEV)
+    reqs = submit_requests(eng, cfg)
+    spies = install_spies()
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    eng.run(max_steps=40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(spies)
+    step = step_compare(eng) if compare else None
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    stats = eng.run()
+    forced = False
+    if counts["transcode_pages"] + build.launch_counts()["transcode_pages"] == 0:
+        forced = force_migration(eng)
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    counts = _add(counts, read_counts(spies))
+    peak = torch.cuda.max_memory_allocated()
+    remove_spies(spies)
+
+    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == 48 for r in reqs):
+        fail(f"serial: not every request completed: {stats.completed}/3")
+    if counts["fused_tiered_attention"] != cfg.n_layers * stats.steps:
+        fail(f"serial: fused_tiered_attention launched {counts['fused_tiered_attention']} "
+             f"times, expected {cfg.n_layers} x {stats.steps} decode steps")
+    if counts["quant_pages"] < 1 or counts["transcode_pages"] < 1:
+        fail(f"serial: page-out/migration kernels not on the path: {counts}")
+    if not forced:
+        check_counts(counts, "serial")
+    if stats.attn_launches != counts["fused_tiered_attention"]:
+        fail(f"serial: billed attention launches {stats.attn_launches} != counted {counts}")
+    metrics = engine_metrics(stats, reqs, wall, peak)
+    metrics["forced_migration"] = forced
+    metrics["alpha"] = alpha
+    log(f"phase 3 ok (serial, alpha {alpha}): {json.dumps(metrics)}; launches {counts}")
+    return metrics, counts, step
+
+
+def phase_async(cfg, model, params):
+    """The default path: async migration + prefetch. Counts are reset before
+    and read after each part of the run; the mid-run compares are not
+    counted, and the per-pool steps are a path of their own."""
+    ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
+                            async_migration=True, prefetch=True, faults=False)
+    log(f"phase 3 (async): alpha {ts.alpha}, async_migration {ts.async_migration}, "
+        f"prefetch {ts.prefetch}")
+    torch.cuda.reset_peak_memory_stats()
+    eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                       recent_window=R, ts=ts, device=DEV)
+    reqs = submit_requests(eng, cfg)
+    spies = install_spies()
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    eng.run(max_steps=40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(spies)
+
+    compares = {"kernel_vs_plain": step_compare(eng), "per_pool_vs_fused": per_pool_compare(eng)}
+    # Phase 5 times the attention kernels on this mid-run state: keep its
+    # tables and recent window (the class buffers are shared and stay valid).
+    st = eng.cache.state
+    state = dataclasses.replace(st, **{
+        f: getattr(st, f).clone() for f in (
+            "warm_table", "warm_n", "cold_table", "cold_n", "host_table", "host_n",
+            "recent_k", "recent_v", "recent_len")})
+
+    # The per-pool path, driven through the engine.
+    d0, tok0 = eng.stats.decode_s, sum(len(r.out_tokens) for r in reqs)
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    try:
+        ops.use_fused(False)
+        for _ in range(PER_POOL_STEPS):
+            eng._fill_slots()
+            eng.step()
+        torch.cuda.synchronize()
+    finally:
+        ops.use_fused(True)
+    pp_wall = time.perf_counter() - t0
+    pp_counts = read_counts(spies)
+    pp_decode = eng.stats.decode_s - d0
+    pp_tokens = sum(len(r.out_tokens) for r in reqs) - tok0
+    if (pp_counts["paged_quant_attention"] != 2 * eng.la * PER_POOL_STEPS
+            or pp_counts["fused_tiered_attention"]):
+        fail(f"per-pool path launched {pp_counts}, expected 2 x {eng.la} x {PER_POOL_STEPS} "
+             "paged_quant_attention and no fused launch")
+
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    counts = _add(counts, read_counts(spies))
+    peak = torch.cuda.max_memory_allocated()
+    remove_spies(spies)
+
+    main_steps = stats.steps - PER_POOL_STEPS
+    ring = eng.cache.staging_ring
+    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == 48 for r in reqs):
+        fail(f"async: not every request completed: {stats.completed}/3")
+    if stats.overlapped_steps <= 0:
+        fail("async: no decode step overlapped a migration cohort")
+    # Every staged page met a boundary (hit or miss) or was invalidated
+    # while held (a request finished mid-window and freed its pages).
+    invalidated = eng.cache.pipeline.prefetch_invalidated
+    if stats.prefetch_staged <= 0 or (stats.prefetch_staged != stats.prefetch_hits
+                                      + stats.prefetch_misses + invalidated):
+        fail(f"async: prefetch staged {stats.prefetch_staged}, hits {stats.prefetch_hits}, "
+             f"misses {stats.prefetch_misses}, invalidated {invalidated} (alpha {ts.alpha})")
+    if ring.held_slots or ring.free_slots != ring.n_slots:
+        fail(f"async: {ring.held_slots} ring credits left held")
+    if counts["fused_tiered_attention"] != cfg.n_layers * main_steps:
+        fail(f"async: fused_tiered_attention launched {counts['fused_tiered_attention']} "
+             f"times, expected {cfg.n_layers} x {main_steps} decode steps")
+    if counts["transcode_pages"] < 1 or counts["dequant_pages"] < 1 or counts["quant_pages"] < 1:
+        fail(f"async: quant/transcode/dequant kernels not on the path: {counts}")
+    check_counts(counts, "async")
+    if stats.attn_launches != counts["fused_tiered_attention"] + pp_counts["paged_quant_attention"]:
+        fail(f"async: billed attention launches {stats.attn_launches} != counted "
+             f"{counts} + {pp_counts}")
+    metrics = engine_metrics(stats, reqs, wall, peak, steps=main_steps,
+                             decode_s=stats.decode_s - pp_decode)
+    metrics["generated_tokens"] -= pp_tokens
+    metrics["tokens_per_s"] = metrics["generated_tokens"] / wall
+    metrics["alpha"] = ts.alpha
+    metrics["prefetch_invalidated"] = invalidated
+    metrics["per_pool"] = {"steps": PER_POOL_STEPS, "decode_ms_per_step":
+                           pp_decode / PER_POOL_STEPS * 1e3, "wall_s": pp_wall}
+    log(f"phase 3 ok (async): {json.dumps(metrics)}; launches {counts}; "
+        f"per-pool launches {pp_counts}")
+    return eng, counts, pp_counts, metrics, spies, state, compares
 
 
 def force_migration(eng: TieredEngine) -> bool:
-    """The policy moved no page between codecs in this run: drive the
+    """The serial policy moved no page between codecs in this run: drive the
     cohort executor by hand, warm pages to the cold tier and back."""
     cache = eng.cache
-    from repro_torch.serving import kv_cache as kvc
-
     warm = np.where((cache.physical == kvc.WARM) & cache._page_exists)[0][:64]
     if warm.size == 0:
         for i in range(eng.bs):  # everything finished: serve one more request
@@ -358,6 +603,148 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------- phase 3b
+def _mode_cache(cfg, **kw):
+    return kvc.TieredKVCache(cfg, MODES_LAYERS, 2, T, 1024, R,
+                             ManagerConfig(policy="analytical", alpha=kw.pop("alpha", 0.5)),
+                             device=DEV, **kw)
+
+
+def _fill(cache, seed: int, n_pages: int):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    coords = [(la, sl, pg) for la in range(cache.la) for sl in range(cache.bs)
+              for pg in range(cache.max_pages)][:n_pages]
+    shape = (len(coords), T, cache.cfg.n_kv_heads, cache.cfg.head_dim_())
+    cache.append_pages(coords, torch.randn(shape, generator=g, device=DEV),
+                       torch.randn(shape, generator=g, device=DEV))
+
+
+def _same_state(a, b, what: str) -> None:
+    """Bit-identical placements and payloads: physical and desired
+    placement, every device page's class-buffer rows, every host page's
+    bytes, the tables and the host sentinels."""
+    if not (np.array_equal(a.physical, b.physical)
+            and np.array_equal(a.manager.placement, b.manager.placement)):
+        fail(f"{what}: placements differ in {int((a.physical != b.physical).sum())} pages")
+    for level in (kvc.WARM, kvc.COLD):
+        rids = np.where((a.physical == level) & a._page_exists)[0]
+        if rids.size:
+            pool = kvc._POOL[level]
+            layers = rids // (a.bs * a.max_pages)
+            for x, y in zip(a._gather_rows(pool, layers, a._pool_slot[rids]),
+                            b._gather_rows(pool, layers, b._pool_slot[rids])):
+                if not torch.equal(x, y):
+                    fail(f"{what}: device payloads differ")
+    if set(a.host_pages) != set(b.host_pages) or any(
+            not np.array_equal(x, y) for r in a.host_pages
+            for x, y in zip(a.host_pages[r], b.host_pages[r])):
+        fail(f"{what}: host payloads differ")
+    for f in ("warm_n", "cold_n", "host_n"):
+        if not torch.equal(getattr(a.state, f), getattr(b.state, f)):
+            fail(f"{what}: {f} differs")
+    # Sentinel slots are allocated in execution order; the centroids per page
+    # must agree.
+    rids = np.array(sorted(a.host_pages), np.int64)
+    if rids.size:
+        layers = torch.as_tensor(rids // (a.bs * a.max_pages), device=DEV)
+        if not torch.equal(a.state.host_summary[layers, torch.as_tensor(a._host_slot[rids],
+                                                                        device=DEV)],
+                           b.state.host_summary[layers, torch.as_tensor(b._host_slot[rids],
+                                                                        device=DEV)]):
+            fail(f"{what}: host sentinel centroids differ")
+
+
+def _drive_windows(cache, windows: int, ticks: int = 8) -> None:
+    for w in range(windows):
+        counts = np.zeros(cache.n_regions)
+        live = np.where(cache._page_exists)[0]
+        counts[live[w % 4::4]] = 500.0
+        cache.manager.record_access_counts(counts)
+        for _ in range(ticks):
+            if cache.pipeline.busy:
+                cache.pipeline.tick()
+            else:
+                cache.prefetch_tick()
+        cache.end_window()
+        cache.drain_migrations()
+
+
+def phase_modes(cfg) -> dict:
+    """The executors agree on the card (reduced depth, full width), as
+    tests/test_media.py, test_prefetch.py and test_faults.py hold them."""
+    out = {}
+    # (a) Random plans through the serial executor and the pipeline.
+    serial, asyn = _mode_cache(cfg), _mode_cache(cfg, async_migration=True)
+    for c in (serial, asyn):
+        _fill(c, SEED, serial.n_regions * 3 // 4)
+    rng = np.random.default_rng(SEED)
+    moved = 0
+    for _ in range(3):
+        live = np.where(serial._page_exists)[0]
+        rids = rng.choice(live, size=live.size // 2, replace=False)
+        dsts = np.array([rng.choice([t for t in (kvc.WARM, kvc.COLD, kvc.HOST8, kvc.HOST4)
+                                     if t != serial.physical[r]]) for r in rids], np.int64)
+        moved += serial.migrate_batch(rids, dsts)
+        asyn.pipeline.submit(asyn.plan_cohorts(rids, dsts))
+        while asyn.pipeline.busy:
+            asyn.pipeline.tick()
+        _same_state(serial, asyn, "serial vs async")
+    out["random_plans_pages_moved"] = moved
+    del serial, asyn
+    # (b) Prefetch on vs off: the host half warms up; staged pages are
+    # claimed at the boundary and commit what the prefetch-free run commits.
+    spec, oracle = (_mode_cache(cfg, async_migration=True, prefetch=p, warm_frac=1.0,
+                                prefetch_max_pages=16) for p in (True, False))
+    for c in (spec, oracle):
+        _fill(c, SEED + 1, 32)
+        live = np.where(c._page_exists)[0]
+        device, host = live[:16], live[16:]
+        c.migrate_batch(host, np.full(host.size, kvc.HOST4, np.int64))
+    for hot_host in (0.0, 800.0):
+        for c in (spec, oracle):
+            counts = np.zeros(c.n_regions)
+            counts[device] = 500.0
+            counts[host] = hot_host
+            c.manager.record_access_counts(counts)
+            for _ in range(8):
+                if c.pipeline.busy:
+                    c.pipeline.tick()
+                else:
+                    c.prefetch_tick()
+            c.end_window()
+            c.drain_migrations()
+    _same_state(spec, oracle, "prefetch on vs off")
+    p = spec.pipeline
+    if p.prefetch_hits <= 0:
+        fail(f"prefetch staged {p.prefetch_staged} pages but none was claimed")
+    out["prefetch"] = {"staged": p.prefetch_staged, "hits": p.prefetch_hits,
+                       "misses": p.prefetch_misses}
+    del spec, oracle
+    # (c) A seeded storm plus recoverable faults on every window.
+    plan = FaultPlan(FaultPlan.seeded_storm("host_dram_pcie", seed=1, windows=8).events + tuple(
+        FaultEvent(k, d, 1, 99) for k in ("transient", "corrupt")
+        for d in ("hbm", "host_dram_pcie")))
+    runs = []
+    for is_async in (False, True):
+        c = _mode_cache(cfg, async_migration=is_async, ring_slots=8, fault_plan=plan, alpha=0.0)
+        _fill(c, SEED + 2, 48)
+        _drive_windows(c, 7)
+        runs.append(c)
+    if not np.array_equal(runs[0].physical, runs[1].physical):
+        fail("storm: serial and async placements differ")
+    if runs[0].fault_deferred_pages != runs[1].fault_deferred_pages:
+        fail("storm: deferred moves differ between modes")
+    p = runs[1].pipeline
+    if p.corruptions_detected != p.corruptions_injected or runs[1].staging_ring.held_slots:
+        fail("storm: an injected corruption was missed or a ring credit leaked")
+    out["storm"] = {"retries": p.fault_retries, "corruptions_repaired": p.corruptions_repaired,
+                    "deferred_pages": runs[1].fault_deferred_pages,
+                    "pages_moved": p.pages_moved}
+    log(f"phase 3b ok: serial and async executors agree at {MODES_LAYERS} layers: "
+        f"{json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -383,7 +770,33 @@ def attention_work(operands) -> tuple:
     return n_bytes, n_ops
 
 
-def phase_times(eng, counts, spies, state, errs) -> list:
+def paged_work(args) -> tuple:
+    """Bytes and f32 operations one per-pool launch needs: the valid pages'
+    K/V payload + scales, q, the table, n_pages and the partials."""
+    q, kp, ks, vp, vs, table, n, bits = args
+    b, h, hd = q.shape
+    t, kv = kp.shape[1], kp.shape[2]
+    valid = int(torch.minimum(n, torch.tensor(table.shape[1], device=n.device)).sum())
+    page = 2 * (t * kv * (hd if bits == 8 else hd // 2) + t * kv * 4)
+    mp = table.shape[1]
+    n_bytes = (valid * page + q.numel() * q.element_size() + b * mp * 4 + b * 4
+               + b * h * hd * 4 + 2 * b * h * 4 + 2 * b * mp * 4)
+    return n_bytes, valid * (4 * h * t * hd + 2 * t * kv * hd)
+
+
+def layer_pools(state, layer: int) -> tuple:
+    lt = {f: getattr(state, f)[layer] for f in serve.LAYER_FIELDS}
+    return lt, {
+        "warm": {"k_pages": lt["c8_k"], "k_scales": lt["c8_k_scales"],
+                 "v_pages": lt["c8_v"], "v_scales": lt["c8_v_scales"],
+                 "page_table": lt["warm_table"], "n_pages": lt["warm_n"], "bits": 8},
+        "cold": {"k_pages": lt["c4_k"], "k_scales": lt["c4_k_scales"],
+                 "v_pages": lt["c4_v"], "v_scales": lt["c4_v_scales"],
+                 "page_table": lt["cold_table"], "n_pages": lt["cold_n"], "bits": 4},
+    }
+
+
+def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
     rows = []
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     # quant_pages at the largest page-out batch of the run.
@@ -396,6 +809,7 @@ def phase_times(eng, counts, spies, state, errs) -> list:
     rows.append(("quant_pages", time_ms(lambda: quant_page.quant_pages(pages, bits)),
                  time_ms(lambda: ref.quant_kv_page(pages, bits)), qb,
                  f"{tuple(pages.shape)} {pages.dtype} -> int{bits}"))
+    del pages
     # transcode_pages at the largest migration cohort of the run.
     _, shape, _, (_, src, dst) = spies["transcode_pages"].largest
     hd_src = shape[-1] * (1 if src == 8 else 2)
@@ -411,20 +825,25 @@ def phase_times(eng, counts, spies, state, errs) -> list:
                  time_ms(lambda: transcode_page.transcode_pages(pay, sc, src, dst)),
                  time_ms(lambda: ref.transcode_kv_page(pay, sc, src, dst)), tb,
                  f"{tuple(pay.shape)} int{src} -> int{dst}"))
+    # dequant_pages at the largest batch the run gave it (f32 sentinels or
+    # the per-page path's fetch).
+    _, shape, _, (_, bits, out_dtype) = spies["dequant_pages"].largest
+    hd = shape[-1] * (1 if bits == 8 else 2)
+    pay, sc = ref.quant_kv_page(torch.randn(shape[:-1] + (hd,), generator=g, device=DEV), bits)
+    errs["dequant_pages"] = max(errs["dequant_pages"], check_dequant(pay, sc, bits, out_dtype))
+    elems = sc.numel() * hd
+    db = bound_ms(pay.numel() + sc.numel() * 4 + elems * out_dtype.itemsize, elems)
+    rows.append(("dequant_pages",
+                 time_ms(lambda: dequant_page.dequant_pages(pay, sc, bits, out_dtype)),
+                 time_ms(lambda: dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)), db,
+                 f"{tuple(pay.shape)} int{bits} -> {out_dtype}"))
     # fused_tiered_attention on layer 0 of the live mid-run state.
-    layer = {f: getattr(state, f)[0] for f in serve.LAYER_FIELDS}
-    pools = {
-        "warm": {"k_pages": layer["c8_k"], "k_scales": layer["c8_k_scales"],
-                 "v_pages": layer["c8_v"], "v_scales": layer["c8_v_scales"],
-                 "page_table": layer["warm_table"], "n_pages": layer["warm_n"], "bits": 8},
-        "cold": {"k_pages": layer["c4_k"], "k_scales": layer["c4_k_scales"],
-                 "v_pages": layer["c4_v"], "v_scales": layer["c4_v_scales"],
-                 "page_table": layer["cold_table"], "n_pages": layer["cold_n"], "bits": 4},
-    }
+    layer, pools = layer_pools(state, 0)
     host = {"summary": layer["host_summary"], "table": layer["host_table"],
             "n": layer["host_n"], "page_tokens": T}
     cfg = eng.cfg
-    q = torch.randn((eng.bs, cfg.n_heads, cfg.head_dim_()), device=DEV).to(torch.bfloat16)
+    q = torch.randn((eng.bs, cfg.n_heads, cfg.head_dim_()), generator=g,
+                    device=DEV).to(torch.bfloat16)
     (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, slot, tier, t, _) = ops._unified_operands(
         q, pools, layer["recent_k"], host)
     rlen = (state.recent_len + 1).to(torch.int32).contiguous()
@@ -438,17 +857,35 @@ def phase_times(eng, counts, spies, state, errs) -> list:
                  time_ms(lambda: pa.fused_tiered_attention_plain(*operands)), ab,
                  f"B={eng.bs} MS={slot.shape[1]} valid rows int8/int4/host="
                  f"{int((tier == 0).sum())}/{int((tier == 1).sum())}/{int((tier == 2).sum())}"))
+    # paged_quant_attention: one layer's two per-pool launches (warm int8 +
+    # cold int4) on the same state and q.
+    pool_args = [(q, p["k_pages"], p["k_scales"], p["v_pages"], p["v_scales"],
+                  p["page_table"], p["n_pages"], p["bits"]) for p in pools.values()]
+    for args in pool_args:
+        errs["paged_quant_attention"] = max(errs["paged_quant_attention"], check_paged(args))
+    work = [paged_work(a) for a in pool_args]
+    pb = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+    per = {name: time_ms(lambda a=a: pa.paged_quant_attention(*a))
+           for name, a in zip(pools, pool_args)}
+    rows.append(("paged_quant_attention",
+                 time_ms(lambda: [pa.paged_quant_attention(*a) for a in pool_args]),
+                 time_ms(lambda: [ref.paged_quant_attention(*a) for a in pool_args]), pb,
+                 f"layer 0, warm int8 + cold int4 launches, B={eng.bs} MP="
+                 f"{pool_args[0][5].shape[1]} valid pages warm/cold="
+                 f"{int(layer['warm_n'].sum())}/{int(layer['cold_n'].sum())}; alone: "
+                 + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())))
+    launches = dict(counts, paged_quant_attention=pp_counts["paged_quant_attention"])
     out = []
     for name, ms, plain_ms, (b_ms, b_by), shape in rows:
         src_path, replaces = REPLACES[name]
         out.append({
             "name": name, "route": "cuda", "source": src_path, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": shape,
         })
         log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}) "
-            f"at {shape}")
+            f"at {shape}; launches {launches[name]}")
     return out
 
 
@@ -491,14 +928,34 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     cfg = get("qwen1_5_4b")
     smi = phase_build()
     errs = phase_compare(cfg)
-    eng, counts, eng_metrics, spies, state, step = phase_engine(cfg)
-    kernels = phase_times(eng, counts, spies, state, errs)
+    model = Model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    log(f"init {cfg.name}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params, "
+        f"{time.perf_counter() - t0:.1f} s")
+    serial_metrics, serial_counts, serial_step = phase_serial(cfg, model, params)
+    gc.collect()
+    torch.cuda.empty_cache()  # free each engine's class buffers before the next
+    same_alpha, _, _ = phase_serial(cfg, model, params, alpha=ASYNC_ALPHA, compare=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, counts, pp_counts, async_metrics, spies, state, compares = phase_async(
+        cfg, model, params)
+    modes = phase_modes(cfg)
+    kernels = phase_times(eng, counts, pp_counts, spies, state, errs)
     prof = phase_profile(eng, state)
-    log(json.dumps({"card": smi, "engine": eng_metrics, "step_compare": step,
-                    "decode_step_profile": prof}))
+    log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
+                                            "serial_same_alpha": same_alpha},
+                    "launches": {"async": counts, "per_pool": pp_counts,
+                                 "serial": serial_counts},
+                    "step_compare": {"serial": serial_step, **compares},
+                    "modes": modes, "decode_step_profile": prof,
+                    "smoke_wall_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

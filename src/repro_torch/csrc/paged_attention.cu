@@ -21,8 +21,9 @@
 // heads when H > 32), lanes over head-dim pairs. The block walks the table
 // rows serially, as the TPU grid's sequential page axis did; the page's
 // (mass, base) needs every head's scores, so each pool row ends in a
-// block-wide reduction through shared memory. q (pre-scaled), acc and the
-// scores of the current row live in shared memory; a row reads only the
+// block-wide reduction through shared memory (the pool-row step of
+// pool_row.cuh, shared with the per-pool kernel). q (pre-scaled), acc and
+// the scores of the current row live in shared memory; a row reads only the
 // class buffer its tier code names.
 //
 // Bound: bytes. Each valid page's int8/int4 K and V payload and scales are
@@ -35,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include "int4.cuh"
+#include "pool_row.cuh"
 
 #define TIER_INT8 0
 #define TIER_INT4 1
@@ -72,7 +74,7 @@ __global__ void fused_tiered_attention_kernel(
   const int nwarps = blockDim.x >> 5;
   const int G = H / KV;
   const int npairs = hd >> 1;
-  const int hd4 = hd >> 1;
+  const PoolRowSmem row{qs, acc, sc, run_m, run_l, hmax, hmass, TR};
 
   for (int i = threadIdx.x; i < H * hd; i += blockDim.x) {
     qs[i] = q[(long long)b * H * hd + i] / qdiv;
@@ -89,103 +91,9 @@ __global__ void fused_tiered_attention_kernel(
     const long long slot = uni_slot[b * MS + r];
     if (tier == TIER_INT8 || tier == TIER_INT4) {
       const bool is8 = tier == TIER_INT8;
-      const float* ksc = (is8 ? s8k : s4k) + slot * T * KV;
-      const float* vsc = (is8 ? s8v : s4v) + slot * T * KV;
-      // Scores s[h, t] = q_h . (k_int[t, kv(h)] * scale[t, kv(h)]).
-      for (int h = warp; h < H; h += nwarps) {
-        const int kvh = h / G;
-        for (int t = 0; t < T; ++t) {
-          const float ks = ksc[t * KV + kvh];
-          const long long rowoff = (slot * T + t) * KV + kvh;
-          float part = 0.f;
-#pragma unroll
-          for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
-            const int i = lane + 32 * j;
-            if (i < npairs) {
-              float a0, a1;
-              if (is8) {
-                const char2 c = reinterpret_cast<const char2*>(k8 + rowoff * hd)[i];
-                a0 = (float)c.x;
-                a1 = (float)c.y;
-              } else {
-                const uint8_t by = k4[rowoff * hd4 + i];
-                a0 = int4_lo(by);
-                a1 = int4_hi(by);
-              }
-              part += qs[h * hd + 2 * i] * (a0 * ks) + qs[h * hd + 2 * i + 1] * (a1 * ks);
-            }
-          }
-          part = warp_sum(part);
-          if (lane == 0) sc[h * TR + t] = part;
-        }
-      }
-      __syncthreads();
-      for (int h = warp; h < H; h += nwarps) {
-        float mx = REPRO_NEG_INF;
-        for (int t = lane; t < T; t += 32) mx = fmaxf(mx, sc[h * TR + t]);
-        mx = warp_max(mx);
-        if (lane == 0) hmax[h] = mx;
-      }
-      __syncthreads();
-      float pbase = REPRO_NEG_INF;
-      for (int h = 0; h < H; ++h) pbase = fmaxf(pbase, hmax[h]);
-      // Online-softmax update and the page's local mass, per head.
-      for (int h = warp; h < H; h += nwarps) {
-        const int kvh = h / G;
-        const float m_old = run_m[h];
-        const float m_new = fmaxf(m_old, hmax[h]);
-        const float alpha = expf(m_old - m_new);
-        float esum = 0.f, lsum = 0.f;
-        for (int t = lane; t < T; t += 32) {
-          const float s = sc[h * TR + t];
-          const float e = expf(s - m_new);
-          lsum += expf(s - pbase);
-          esum += e;
-          sc[h * TR + t] = e;
-        }
-        esum = warp_sum(esum);
-        lsum = warp_sum(lsum);
-        __syncwarp();
-#pragma unroll
-        for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
-          const int i = lane + 32 * j;
-          if (i < npairs) {
-            float a0 = acc[h * hd + 2 * i] * alpha;
-            float a1 = acc[h * hd + 2 * i + 1] * alpha;
-            for (int t = 0; t < T; ++t) {
-              const float vs = vsc[t * KV + kvh];
-              const long long rowoff = (slot * T + t) * KV + kvh;
-              float b0, b1;
-              if (is8) {
-                const char2 c = reinterpret_cast<const char2*>(v8 + rowoff * hd)[i];
-                b0 = (float)c.x;
-                b1 = (float)c.y;
-              } else {
-                const uint8_t by = v4[rowoff * hd4 + i];
-                b0 = int4_lo(by);
-                b1 = int4_hi(by);
-              }
-              const float e = sc[h * TR + t];
-              a0 += e * (b0 * vs);
-              a1 += e * (b1 * vs);
-            }
-            acc[h * hd + 2 * i] = a0;
-            acc[h * hd + 2 * i + 1] = a1;
-          }
-        }
-        if (lane == 0) {
-          run_l[h] = run_l[h] * alpha + esum;
-          run_m[h] = m_new;
-          hmass[h] = lsum;
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float mass = 0.f;
-        for (int h = 0; h < H; ++h) mass += hmass[h];
-        mass_out[b * MS + r] = mass;
-        base_out[b * MS + r] = pbase;
-      }
+      pool_row_step(row, is8, is8 ? (const void*)k8 : (const void*)k4, is8 ? s8k : s4k,
+                    is8 ? (const void*)v8 : (const void*)v4, is8 ? s8v : s4v, slot, H, KV, hd,
+                    T, mass_out + b * MS + r, base_out + b * MS + r);
     } else if (tier == TIER_HOST) {
       for (int h = warp; h < H; h += nwarps) {
         const float* kbar = summary + (slot * KV + h / G) * hd;

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-KERNELS = ("quant_page", "transcode_page", "paged_attention")
+KERNELS = ("quant_page", "transcode_page", "paged_attention", "dequant_page",
+           "paged_quant_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -35,6 +36,8 @@ LAUNCHES: Dict[str, int] = {
     "quant_pages": 0,
     "transcode_pages": 0,
     "fused_tiered_attention": 0,
+    "dequant_pages": 0,
+    "paged_quant_attention": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

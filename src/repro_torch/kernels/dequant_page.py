@@ -1,0 +1,58 @@
+"""KV-page dequantization (the tier decompress path): wrapper of the CUDA
+kernel ``csrc/dequant_page.cu``, and its plain version.
+
+Replaces the Pallas kernel ``repro/kernels/dequant_page.py::dequant_pages``.
+The cache runs it for the host sentinels' key centroids (f32 out) and the
+per-page path's page fetch (``_fetch_dense``). Bound by bytes: each payload
+byte and scale is read once and each output element written once; one
+thread per head-dim pair, one f32 multiply per element, so the output equals
+the plain version bit for bit in f32 and in bf16. On a CPU tensor the plain
+version runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_P = ctypes.c_void_p
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def dequant_pages_plain(payload: torch.Tensor, scales: torch.Tensor, bits: int,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``ref.dequant_kv_page`` cast to ``out_dtype`` (the kernel's function)."""
+    return ref.dequant_kv_page(payload, scales, bits).to(out_dtype)
+
+
+def dequant_pages(payload: torch.Tensor, scales: torch.Tensor, bits: int,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """payload [P, T, KV, hd(|//2)], scales [P, T, KV] -> pages
+    [P, T, KV, hd] in ``out_dtype`` (bf16 or f32)."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
+    if payload.device.type == "cpu":
+        return dequant_pages_plain(payload, scales, bits, out_dtype)
+    name = "dequant_pages"
+    p, t, kv, hdp = payload.shape
+    hd = hdp if bits == 8 else hdp * 2
+    if hd % 2:
+        raise ValueError(f"{name}: head_dim {hd} must be even")
+    dev = payload.device
+    build.check_operand(name, "payload", payload, torch.int8 if bits == 8 else torch.uint8, dev)
+    build.check_operand(name, "scales", scales, torch.float32, dev, (p, t, kv))
+    out = torch.empty((p, t, kv, hd), dtype=out_dtype, device=dev)
+    lib = build.load("dequant_page")
+    fn = lib.dequant_pages_launch
+    fn.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    err = fn(payload.data_ptr(), scales.data_ptr(), out.data_ptr(), p * t * kv, hd, bits,
+             int(out_dtype == torch.bfloat16), build.stream_handle(dev))
+    build.check(err, name)
+    build.count_launch(name)
+    return out

@@ -1,18 +1,24 @@
-"""Public dispatch for the kernels, after ``repro.kernels.ops`` (the fused
-path).
+"""Public dispatch for the kernels, after ``repro.kernels.ops``.
 
-``tiered_decode_attention`` is the serving hot path: the single-launch fused
-kernel (``paged_attention.fused_tiered_attention``) walks one unified page
-table over every compressed page of a sequence regardless of codec, the
-dense recent window rides the same launch, host-resident pages appear as
-sentinel rows emitting a "would-have-touched" mass, and the logsumexp merge
-happens in the kernel — one launch per (layer, decode step), O(1) in tier
-count. Each wrapper picks its kernel or its plain version from the device of
-its tensors; ``build.launch_counts()`` counts the kernel launches.
+``tiered_decode_attention`` is the serving hot path. By default it is the
+single-launch fused kernel (``paged_attention.fused_tiered_attention``): one
+unified page table walks every compressed page of a sequence regardless of
+codec, the dense recent window rides the same launch, host-resident pages
+appear as sentinel rows emitting a "would-have-touched" mass, and the
+logsumexp merge happens in the kernel — one launch per (layer, decode step),
+O(1) in tier count. ``use_fused(False)`` selects the per-pool path instead:
+the dense recent partial (plain torch), one ``paged_quant_attention`` launch
+per pool, an exact merge of the partials, the host sentinels' mass
+(``ref.host_page_mass``) and the page hotness at the merged ``(m, l)`` — the
+reference's equivalence oracle, outputs and hotness equal to the fused path
+within fp32 tolerance. Each wrapper picks its kernel or its plain version
+from the device of its tensors; ``build.launch_counts()`` counts the kernel
+launches.
 
 ``page_hotness`` turns per-page mass telemetry into the normalized hotness
 the TierScape manager consumes; ``decode_launches_per_step`` is the modeled
-launches-per-decode-step the serving cache bills, independent of device.
+launches-per-decode-step the serving cache bills (1 fused, one per pool
+otherwise), independent of device.
 """
 
 from __future__ import annotations
@@ -21,12 +27,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.dequant_page import dequant_pages  # noqa: F401  (public dispatch name)
 from repro_torch.kernels.paged_attention import (
     TIER_HOST,
     TIER_INT4,
     TIER_INT8,
     TIER_INVALID,
     fused_tiered_attention as fused_attn_kernel,
+    paged_quant_attention as paged_attn_kernel,
 )
 from repro_torch.kernels.quant_page import quant_pages  # noqa: F401  (public dispatch name)
 from repro_torch.kernels.transcode_page import transcode_pages  # noqa: F401  (same-width: identity)
@@ -37,16 +46,15 @@ from repro_torch.kernels.transcode_page import transcode_pages  # noqa: F401  (s
 # buffers of one codec class.
 _COPY_BYTES = 0
 
+_USE_FUSED = True
+
 
 def use_fused(flag: bool) -> None:
-    """The fused single-launch path is the only one ported; the per-pool
-    launch loop (``use_fused(False)`` in the reference) comes with the
-    ``paged_quant_attention`` kernel in a later slice."""
-    if not flag:
-        raise NotImplementedError(
-            "use_fused(False): the per-pool attention path and its "
-            "paged_quant_attention kernel are not ported yet (see ROADMAP)"
-        )
+    """Toggle the single-launch fused kernel (True, default) vs the per-pool
+    launch loop (False — the equivalence oracle). Process-wide, as in the
+    reference."""
+    global _USE_FUSED
+    _USE_FUSED = bool(flag)
 
 
 def reset_copy_bytes() -> None:
@@ -61,8 +69,19 @@ def concat_copy_bytes() -> int:
 
 def decode_launches_per_step(n_pools: int) -> int:
     """Modeled attention launches per (layer, decode step): 1 on the fused
-    path regardless of tier count (host sentinels ride the same launch)."""
-    return 1
+    path regardless of tier count (host sentinels ride the same launch), one
+    per tier pool on the per-pool path."""
+    if _USE_FUSED:
+        return 1
+    return int(n_pools)
+
+
+def _pool_partials(q, pool: Dict[str, torch.Tensor]):
+    """One ``paged_quant_attention`` launch over one pool's pages."""
+    return paged_attn_kernel(
+        q, pool["k_pages"], pool["k_scales"], pool["v_pages"], pool["v_scales"],
+        pool["page_table"], pool["n_pages"], int(pool["bits"]),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -252,15 +271,38 @@ def tiered_decode_attention(
     with_telemetry: bool = False,
     host: Optional[Dict[str, torch.Tensor]] = None,
 ):
-    """Attention over tiered compressed KV pools + dense recent window, in
-    one fused launch.
+    """Attention over tiered compressed KV pools + dense recent window.
 
     Returns out [B, H, hd] f32; with_telemetry=True also returns
     {tier: normalized page hotness [B, MP]}. When ``host`` is given (dict
     with ``summary`` [Hs, KV, hd], ``table`` [B, MPh], ``n`` [B],
     ``page_tokens``), the hotness dict also carries "host": the normalized
-    would-have-touched mass of host-resident pages."""
-    return _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry)
+    would-have-touched mass of host-resident pages.
+
+    Fused (default): one launch per call. ``use_fused(False)``: one launch
+    per pool plus the plain recent partial and merge."""
+    if _USE_FUSED:
+        return _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry)
+    b = q.shape[0]
+    rlen = torch.as_tensor(recent_len, dtype=torch.int32, device=q.device).expand(b)
+    parts = [_ref.dense_recent_attention(q, recent_k, recent_v, rlen)]
+    masses = {}
+    for name in sorted(pools):
+        out_u, m, lsum, mass, base = _pool_partials(q, pools[name])
+        parts.append((out_u, m, lsum))
+        masses[name] = (mass, base)
+    out = _ref.merge_partials(parts)
+    if not with_telemetry:
+        return out
+    # Global (m_tot, l_tot) for the exact normalization of page masses.
+    m_tot = torch.stack([p[1] for p in parts]).amax(dim=0)
+    l_tot = sum(p[2] * torch.exp(p[1] - m_tot) for p in parts)
+    if host is not None:
+        masses["host"] = _ref.host_page_mass(
+            q, host["summary"], host["table"], host["n"], host["page_tokens"]
+        )
+    hot = {name: page_hotness(mass, base, m_tot, l_tot) for name, (mass, base) in masses.items()}
+    return out, hot
 
 
 def page_hotness(mass, base, m_tot, l_tot):

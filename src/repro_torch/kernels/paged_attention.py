@@ -1,5 +1,7 @@
-"""Single-launch fused tiered decode attention: wrapper of the CUDA kernel
-``csrc/paged_attention.cu``, and its plain version.
+"""Paged decode attention: wrappers of the CUDA kernels
+``csrc/paged_attention.cu`` (single-launch fused tiered attention) and
+``csrc/paged_quant_attention.cu`` (flash partials over one pool, the
+``use_fused(False)`` path), and their plain versions.
 
 Replaces the Pallas megakernel
 ``repro/kernels/paged_attention.py::fused_tiered_attention``. One unified
@@ -153,6 +155,73 @@ def fused_tiered_attention(
     )]
     qdiv = float(np.float32(hd**0.5))
     err = fn(*ptrs, b, h, kv, hd, t, r, ms, qdiv, float(page_tokens), build.stream_handle(dev))
+    build.check(err, name)
+    build.count_launch(name)
+    return out, m, lsum, mass, base
+
+
+def paged_quant_attention(
+    q: torch.Tensor,  # [B, H, hd] f32/bf16
+    k_pages: torch.Tensor,  # [P, T, KV, hd] int8 or [P, T, KV, hd//2] uint8
+    k_scales: torch.Tensor,  # [P, T, KV] f32
+    v_pages: torch.Tensor,
+    v_scales: torch.Tensor,
+    page_table: torch.Tensor,  # [B, MP] int32 pool rows (entries >= n_pages ignored)
+    n_pages: torch.Tensor,  # [B] int32
+    bits: int,
+):
+    """Flash partials over one pool (the ``use_fused(False)`` path): one
+    launch of ``csrc/paged_quant_attention.cu``, replacing the Pallas kernel
+    ``repro/kernels/paged_attention.py::paged_quant_attention``.
+
+    Returns (out [B,H,hd] UNNORMALIZED f32, m [B,H] (0 for an empty pool),
+    l [B,H], mass [B,MP], base [B,MP]); rows >= n_pages give mass 0 and base
+    -1e30. Bound by bytes like the fused kernel, and like it one block per
+    sequence. On CPU tensors the plain version ``ref.paged_quant_attention``
+    runs."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if q.device.type == "cpu":
+        return ref.paged_quant_attention(q, k_pages, k_scales, v_pages, v_scales,
+                                         page_table, n_pages, bits)
+    name = "paged_quant_attention"
+    dev = q.device
+    b, h, hd = q.shape
+    p, t, kv = k_pages.shape[:3]
+    mp = page_table.shape[1]
+    if hd % 2 or hd > 256 or h % kv:
+        raise ValueError(f"{name}: head_dim {hd} must be even and <= 256, H % KV == 0")
+    qf = q.to(torch.float32).contiguous()
+    pay_dt, hdp = (torch.int8, hd) if bits == 8 else (torch.uint8, hd // 2)
+    f32, i32 = torch.float32, torch.int32
+    for nm, x, dt, shape in (
+        ("q", qf, f32, (b, h, hd)),
+        ("k_pages", k_pages, pay_dt, (p, t, kv, hdp)),
+        ("k_scales", k_scales, f32, (p, t, kv)),
+        ("v_pages", v_pages, pay_dt, (p, t, kv, hdp)),
+        ("v_scales", v_scales, f32, (p, t, kv)),
+        ("page_table", page_table, i32, (b, mp)),
+        ("n_pages", n_pages, i32, (b,)),
+    ):
+        build.check_operand(name, nm, x, dt, dev, shape)
+    # The kernel trusts the valid table prefix: every entry must be a pool row.
+    valid = torch.arange(mp, device=dev)[None] < n_pages[:, None]
+    rows = page_table[valid]
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= p):
+        raise IndexError(f"{name}: page table addresses rows outside the pool's {p} rows")
+    out = torch.empty((b, h, hd), dtype=f32, device=dev)
+    m = torch.empty((b, h), dtype=f32, device=dev)
+    lsum = torch.empty((b, h), dtype=f32, device=dev)
+    mass = torch.empty((b, mp), dtype=f32, device=dev)
+    base = torch.empty((b, mp), dtype=f32, device=dev)
+    lib = build.load("paged_quant_attention")
+    fn = lib.paged_quant_attention_launch
+    fn.argtypes = [_P] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    ptrs = [x.data_ptr() for x in (qf, k_pages, k_scales, v_pages, v_scales, page_table,
+                                   n_pages, out, m, lsum, mass, base)]
+    qdiv = float(np.float32(hd**0.5))
+    err = fn(*ptrs, b, h, kv, hd, t, mp, bits, qdiv, build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(name)
     return out, m, lsum, mass, base

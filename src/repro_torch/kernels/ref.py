@@ -26,6 +26,11 @@ from repro_torch.kernels.packing import QMAX, pack_int4, unpack_int4
 
 NEG_INF = -1e30
 
+# Inline CXL line compression (the cxl_hw media device): int8 codewords per
+# hardware line, and the largest |q| a line may hold to be stored 4-bit.
+CXL_LINE_ELEMS = 64
+CXL_NARROW_QMAX = 7
+
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """IEEE ``x / c`` on every device (see the module docstring)."""

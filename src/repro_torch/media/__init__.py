@@ -1,1 +1,2 @@
-"""Backing-media subsystem of the port (the device catalog so far)."""
+"""Backing media of the tiers: device catalog and virtual-time queues, the
+pinned staging ring, fault injection and the async migration pipeline."""

@@ -1,12 +1,17 @@
 """Serving engine: continuous batching over slots + tiered KV cache, after
-``repro.serving.engine`` (dense family, serial migration).
+``repro.serving.engine`` (dense family).
 
 Request lifecycle: queue -> slot assignment -> prefill (dense, then pages
-compress into the warm tier) -> decode steps (tiered attention, telemetry)
--> window boundary (TierScape placement, blocking migration) -> completion
-frees pages. On the GPU every decode step runs the fused CUDA attention
-kernel in every layer; on the CPU it runs the plain oracle, as the JAX
-engine does.
+compress into the warm tier) -> decode steps (tiered attention, telemetry,
+one migration-pipeline tick or speculative prefetch tick) -> window boundary
+(TierScape placement; the plan's cohorts go to the async media pipeline by
+default, or run to completion with ``async_migration=False``) -> completion
+frees pages. ``faults``/``fault_plan`` arm deterministic media fault
+injection and ``host_media_device`` rebinds the host tiers. On the GPU every
+decode step runs the fused CUDA attention kernel in every layer (or, under
+``ops.use_fused(False)``, one per-pool kernel per pool); on the CPU it runs
+the plain oracle, as the JAX engine does. Preemption (park/resume) comes
+with the frontend.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from repro_torch.configs.base import TierScapeRunConfig
 from repro_torch.core.manager import ManagerConfig
 from repro_torch.device import resolve_device
+from repro_torch.media.faults import default_plan
 from repro_torch.models.transformer import Model, _attn_layer_count
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.kv_cache import TieredKVCache
@@ -48,13 +54,14 @@ class EngineStats:
     resumes: int = 0
     resumed_pages: int = 0
     re_prefill_tokens: int = 0
-    # Async-pipeline and prefetch counters (serial migration: always 0).
+    # Decode steps retired while a migration cohort was in flight (async
+    # pipeline), and speculative prefetch: pages staged / claimed / missed.
     overlapped_steps: int = 0
     prefetch_staged: int = 0
     prefetch_hits: int = 0
     prefetch_misses: int = 0
     # Decode-attention launches billed by the cache's dispatch proxy
-    # (n_layers per step on the fused path).
+    # (fused: n_layers per step; per-pool: n_layers * n_pools).
     attn_launches: int = 0
     # Wall seconds (host clock): decode steps (kernels plus the telemetry
     # copy to the host, so device work is complete), telemetry folds plus
@@ -68,21 +75,12 @@ class EngineStats:
     tco_savings_by_tenant: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
-def _check_ported(ts: TierScapeRunConfig, family: str) -> None:
-    """Options of the reference engine that later slices port: each raises
-    instead of running something else."""
-    later = {
-        "async_migration=True (the media pipeline)": ts.async_migration,
-        "prefetch=True (speculative prefetch on the media pipeline)": ts.prefetch,
-        "faults=True / fault_plan (fault injection)": ts.faults or ts.fault_plan is not None,
-        "host_media_device (media catalog rebinding)": ts.host_media_device != "",
-        f"family {family!r} (only 'dense' is ported)": family != "dense",
-    }
-    bad = [k for k, v in later.items() if v]
-    if bad:
+def _check_ported(family: str) -> None:
+    """Model families the port does not cover yet raise instead of running."""
+    if family != "dense":
         raise NotImplementedError(
-            "not ported yet (a later slice of the port, see ROADMAP): " + "; ".join(bad)
-            + ". Pass async_migration=False, prefetch=False explicitly."
+            f"not ported yet (a later slice of the port, see ROADMAP): family {family!r} "
+            "(only 'dense' is ported)"
         )
 
 
@@ -103,7 +101,7 @@ class TieredEngine:
         cfg = model.cfg
         self.device = resolve_device(device)
         ts = ts or TierScapeRunConfig(enabled=True)
-        _check_ported(ts, cfg.family)
+        _check_ported(cfg.family)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
         self.model = model
@@ -122,6 +120,11 @@ class TieredEngine:
             hotness_threshold=ts.hotness_threshold,
             window_steps=ts.window_steps,
         )
+        fault_plan = ts.fault_plan
+        if fault_plan is None and ts.faults:
+            # Chaos soak: the default transient + corruption plan on the host
+            # media device — fully recovered and billing-neutral.
+            fault_plan = default_plan(ts.host_media_device or "host_dram_pcie")
         self.cache = TieredKVCache(
             cfg,
             self.la,
@@ -130,7 +133,13 @@ class TieredEngine:
             max_seq_len,
             recent_window,
             mgr_cfg,
+            async_migration=ts.async_migration,
+            ring_slots=ts.media_ring_slots,
+            prefetch=ts.prefetch,
+            prefetch_max_pages=ts.prefetch_max_pages,
             pool_bits={"warm": ts.warm_bits, "cold": ts.cold_bits},
+            host_media_device=ts.host_media_device,
+            fault_plan=fault_plan,
             device=self.device,
         )
         # The fused CUDA kernel on the GPU; the plain oracle on the CPU (the
@@ -176,10 +185,18 @@ class TieredEngine:
             self._end_window()
 
     def finish(self) -> EngineStats:
-        """Finalize the stats snapshot (idempotent)."""
+        """Drain in-flight cohorts and finalize the stats snapshot
+        (idempotent)."""
+        t0 = time.perf_counter()
+        self.cache.drain_migrations()
+        self.stats.daemon_s += time.perf_counter() - t0
         self.stats.tco_savings_pct = max(
             self.stats.tco_savings_pct, self.cache.tco_savings_pct()
         )
+        pipe = self.cache.pipeline
+        self.stats.prefetch_staged = pipe.prefetch_staged
+        self.stats.prefetch_hits = pipe.prefetch_hits
+        self.stats.prefetch_misses = pipe.prefetch_misses
         self.stats.attn_launches = self.cache.attn_launches
         return self.stats
 
@@ -250,6 +267,14 @@ class TieredEngine:
 
         t1 = time.perf_counter()
         self.cache.record_telemetry(telemetry)
+        # Advance in-flight migration cohorts by one phase (decode retired a
+        # step while migration ran); on an idle media path, spend the step on
+        # speculative prefetch (a no-op unless prefetch is on).
+        if self.cache.pipeline.busy:
+            self.cache.pipeline.tick()
+            self.stats.overlapped_steps += 1
+        else:
+            self.cache.prefetch_tick()
         self.stats.daemon_s += time.perf_counter() - t1
 
         for i, req in enumerate(self.slots):

@@ -1,5 +1,5 @@
 """Tiered paged KV cache: device pools + host tiers + page tables, after
-``repro.serving.kv_cache`` (the serial, blocking migration executor).
+``repro.serving.kv_cache``.
 
   placement levels for a KV page (region):
     1 = warm  device pool, int8-HBM   (C5/C6-class tier: low latency)
@@ -21,13 +21,29 @@ numpy too. Device state is ``TieredKVState`` tensors: page tables are edited
 on the host and committed to the device once per batch, and the class
 buffers are written in place (the reference's functional ``.at[].set``).
 ``manager.placement`` is the policy's desired placement, ``self.physical``
-where each page's payload actually lives; ``migrate_batch`` reconciles them
-cohort by cohort with one ``transcode_pages`` launch per transcoding cohort.
-The per-page ``migrate`` path is its equivalence oracle and serves the
-single-page evictions of ``append_page``.
+where each page's payload actually lives. Two executors reconcile them
+cohort by cohort, with one ``transcode_pages`` launch per transcoding
+cohort:
 
-Not ported yet (later slices): the async media pipeline, speculative
-prefetch, fault injection, adaptive media and preemption (park/restore).
+  * serial (``async_migration=False``, the equivalence oracle):
+    ``migrate_batch`` runs the window's plan to completion at the boundary;
+  * async (the default): the plan's cohorts go to the media pipeline
+    (``media.pipeline.MigrationPipeline``), which drives the phase-split
+    executor below (``stage_cohort`` / ``transcode_cohort`` /
+    ``commit_cohort``) one phase per decode step, through the pinned
+    staging ring for host-media cohorts. Cohorts between the device pools
+    stay device tensors (the reference round-trips them through host
+    numpy); every payload that reaches ``transcode_pages`` is on
+    ``self.device``. Speculative prefetch stages warming host pages through
+    the ring's reserved slice mid-window, and a ``FaultPlan`` injects
+    deterministic media faults; final placements stay bit-identical to the
+    serial executor's.
+
+The per-page ``migrate`` path is the batched executor's oracle and serves
+the single-page evictions of ``append_page``. Host sentinels' key centroids
+and the per-page fetch dequantize through ``kops.dequant_pages`` on
+``self.device`` (the CUDA kernel on a GPU). Preemption (park/restore) comes
+with the frontend.
 """
 
 from __future__ import annotations
@@ -46,6 +62,10 @@ from repro_torch.core.tiers import TierSet, get as get_tier
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.media.devices import adaptive_devices, make_queues
+from repro_torch.media.faults import FaultyMediaDevice
+from repro_torch.media.pipeline import PAYLOAD_KEYS, MigrationPipeline
+from repro_torch.media.ringbuf import PinnedRing
 from repro_torch.runtime.serve import CLASS_FIELDS, TieredKVState, init_tiered_kv_state
 
 # Placement indices (0 stays "uncompressed DRAM" for cost-model parity with
@@ -59,9 +79,31 @@ _DEVICE_TIER_IDS = {
     ("cold", 8): "C6",  # PK-I8-HB
     ("cold", 4): "C9",  # PK-I4-HB
 }
-# A page in flight between tiers (the async pipeline's marker; the serial
-# executor never leaves one, but every placement mask excludes it).
+# A page staged out of its source tier but not yet committed by the async
+# pipeline. Every placement mask is a positive-level comparison, so in-flight
+# pages drop out of telemetry folds, eviction scans and capacity pre-passes.
 INFLIGHT = -1
+
+
+def kv_tierset(
+    page_elems: int, warm_bits: int = 8, cold_bits: int = 4, host_device: str = ""
+) -> TierSet:
+    """TierSet for a device-pool codec split: (C5, C9, C7, C10) by default
+    (int8-HBM, int4-HBM, int8-host, int4-host); same-width splits pick the
+    matching characterized tiers so byte/latency accounting follows the
+    deployed codecs. ``host_device`` rebinds the two host tiers onto another
+    media device of the catalog (e.g. ``"cxl_hw"``): payloads are unchanged,
+    only media billing and service times move."""
+    ids = (
+        _DEVICE_TIER_IDS[("warm", int(warm_bits))],
+        _DEVICE_TIER_IDS[("cold", int(cold_bits))],
+        "C7",
+        "C10",
+    )
+    ts = tuple(get_tier(t) for t in ids)
+    if host_device:
+        ts = ts[:2] + tuple(dataclasses.replace(t, media_device=host_device) for t in ts[2:])
+    return TierSet(tiers=ts, block_elems=page_elems)
 
 
 def _np(x) -> np.ndarray:
@@ -69,20 +111,6 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
-
-
-def kv_tierset(page_elems: int, warm_bits: int = 8, cold_bits: int = 4) -> TierSet:
-    """TierSet for a device-pool codec split: (C5, C9, C7, C10) by default
-    (int8-HBM, int4-HBM, int8-host, int4-host); same-width splits pick the
-    matching characterized tiers so byte/latency accounting follows the
-    deployed codecs."""
-    ids = (
-        _DEVICE_TIER_IDS[("warm", int(warm_bits))],
-        _DEVICE_TIER_IDS[("cold", int(cold_bits))],
-        "C7",
-        "C10",
-    )
-    return TierSet(tiers=tuple(get_tier(t) for t in ids), block_elems=page_elems)
 
 
 class _TableEditor:
@@ -136,14 +164,28 @@ class TieredKVCache:
         manager_cfg: ManagerConfig,
         warm_frac: float = 0.5,
         tenant_quota: Optional[Dict[str, Dict[int, int]]] = None,
+        async_migration: bool = False,
+        ring_slots: int = 64,
+        media_step_s: float = 50e-6,
+        prefetch: bool = False,
+        prefetch_max_pages: int = 8,
         pool_bits: Optional[Dict[str, int]] = None,
+        host_media_device: str = "",
+        fault_plan=None,
         device="cuda",
     ):
         """``tenant_quota`` maps pool name ("warm"/"cold") -> {tenant id ->
         max concurrently held slots}; quota exhaustion spills that tenant's
-        pages down-tier. ``pool_bits`` maps pool name -> codec width (8 or 4)
-        for the device pools, default ``{"warm": 8, "cold": 4}``; pools of
-        the same width share one codec-class buffer."""
+        pages down-tier. ``async_migration`` routes window plans through the
+        media pipeline instead of the blocking ``migrate_batch``;
+        ``prefetch`` (async only) stages warming host pages speculatively
+        through the ring's reserved slice, placements unchanged.
+        ``pool_bits`` maps pool name -> codec width (8 or 4) for the device
+        pools, default ``{"warm": 8, "cold": 4}``; pools of the same width
+        share one codec-class buffer. ``host_media_device`` rebinds the host
+        tiers onto another catalog device (e.g. ``"cxl_hw"``).
+        ``fault_plan`` (a ``media.faults.FaultPlan``) wraps every media
+        queue's device in a ``FaultyMediaDevice`` on one window clock."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.la = n_attn_layers
@@ -189,8 +231,9 @@ class TieredKVCache:
 
         # Region space: (layer, slot, page) flattened.
         self.n_regions = total_pages
+        self.host_media_device = str(host_media_device)
         self.manager = TierScapeManager(
-            kv_tierset(self.page_elems, wb, cb),
+            kv_tierset(self.page_elems, wb, cb, host_device=self.host_media_device),
             self.n_regions,
             region_bytes=self.page_elems * 2,
             cfg=manager_cfg,
@@ -219,6 +262,44 @@ class TieredKVCache:
         # ``kops.decode_launches_per_step`` (1 per layer on the fused path).
         self.attn_launches = 0
         self.decode_steps_recorded = 0
+
+        # --- backing-media subsystem: one MediaQueue per distinct device, a
+        # staging ring sized for the fattest page (int8 payload + f32
+        # scales, K and V), pinned on a GPU, and the migration pipeline
+        # (serial=True keeps the blocking boundary, the oracle).
+        ts = self.manager.tierset
+        self._dev_names = [d.name for d in ts.media_devices()]
+        self._page_stored_bytes = np.array(
+            [self.page_elems * 2] + [t.stored_bytes(self.page_elems, 2) for t in ts.tiers],
+            np.int64,
+        )
+        hd8 = page_tokens * kv * hd  # int8 payload bytes per K (or V) page
+        sc = 4 * page_tokens * kv  # f32 scale bytes per K (or V) page
+        self.staging_ring = PinnedRing(max(ring_slots, 2), 2 * (hd8 + sc),
+                                       pin=self.device.type == "cuda")
+        self.media_queues = make_queues(self._dev_names)
+        self.fault_plan = fault_plan
+        self._fault_window = 0
+        self._down_devices: set = set()
+        self.fault_deferred_pages = 0  # plan entries deferred off down devices
+        self.fault_spill_redirects = 0  # commit spills rerouted off down devices
+        self._spill_depth = 0  # nested commit-spill depth (redirect guard)
+        self._fault_counter_snapshot = (0, 0, 0)
+        if fault_plan is not None:
+            for q in self.media_queues.values():
+                q.device = FaultyMediaDevice(q.device, fault_plan)
+        self.async_migration = async_migration
+        self.pipeline = MigrationPipeline(
+            self, self.staging_ring, self.media_queues,
+            step_period_s=media_step_s, serial=not async_migration,
+        )
+        self._pending_reconcile: List[np.ndarray] = []
+        self._media_busy_snapshot: Dict[str, float] = {}
+        # Prefetch needs mid-window decode steps to hide the read behind:
+        # async only, at most one cohort emission per profile window.
+        self.prefetch_enabled = bool(prefetch and async_migration)
+        self.prefetch_max_pages = prefetch_max_pages
+        self._prefetch_window_emitted = False
 
     # ------------------------------------------------------------- helpers
     def rid(self, layer: int, slot: int, page: int) -> int:
@@ -310,6 +391,13 @@ class TieredKVCache:
         self.physical[rids] = level
         self.manager.placement[rids] = level
 
+    def _invalidate_prefetch(self, rids) -> None:
+        """A host page moved or was freed under its speculative shadow copy:
+        the staged bytes are stale and must never be claimed. Ring credits
+        return; counts as cancelled."""
+        if self.prefetch_enabled:
+            self.pipeline.discard_speculative(rids, cancelled=True)
+
     # ------------------------------------------------- host sentinel rows
     # Every page on a host tier carries a sentinel: its key centroid (mean
     # over the page's T tokens of the dequantized stored K payload) in
@@ -321,9 +409,14 @@ class TieredKVCache:
         rids = np.asarray(rids, np.int64)
         if rids.size == 0:
             return
+        # One dequant launch on the cache's device (f32 out, bit-equal to the
+        # plain version), then the reference's numpy f32 mean over tokens.
         self.kernel_dispatches += 1
-        deq = kref.dequant_kv_page(torch.as_tensor(_np(k_pay)), torch.as_tensor(_np(k_sc)), bits)
-        summ = deq.numpy().mean(axis=1)  # [P, KV, hd], numpy's f32 mean as the reference
+        deq = kops.dequant_pages(
+            torch.as_tensor(k_pay, device=self.device),
+            torch.as_tensor(k_sc, device=self.device), bits, torch.float32,
+        )
+        summ = _np(deq).mean(axis=1)  # [P, KV, hd]
         hs = np.array(
             [self._host_alloc[int(la)].alloc(int(r)) for la, r in zip(layers, rids)],
             np.int64,
@@ -654,6 +747,7 @@ class TieredKVCache:
             for x in ps:
                 self._free_slot(pool, int(x))
         else:
+            self._invalidate_prefetch(rids)
             self._host_sentinel_remove(rids, layers, slots, editor)
             hp = [self.host_pages.pop(int(r)) for r in rids]
             k_pay, k_sc, v_pay, v_sc = (
@@ -707,6 +801,260 @@ class TieredKVCache:
                 glob -= 1
         return out
 
+    # ------------------------------------- phase-split executor (pipeline)
+    # The async media pipeline drives one cohort through these callbacks
+    # across successive decode steps. Payloads are dicts of tensors: rows
+    # gathered from the class buffers stay on the device, host-tier rows are
+    # host tensors; the pipeline serializes host-media cohorts through the
+    # pinned ring bit-exactly.
+    @staticmethod
+    def _host_payload(hp) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.stack([h[i] for h in hp]))
+                for i, k in enumerate(PAYLOAD_KEYS)}
+
+    def stage_cohort(
+        self, rids: np.ndarray, src: int, dst: Optional[int] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Phase 1: gather the cohort's payloads and retire them from the
+        source tier. Pages go in flight (out of every placement mask, and
+        unread by decode steps) until ``commit_cohort`` lands them. For a
+        move within one codec class the payload rows stay where they are and
+        a ``class_rows`` marker rides the pipeline instead of bytes."""
+        rids = np.asarray(rids, np.int64)
+        layers = rids // (self.bs * self.max_pages)
+        slots = (rids // self.max_pages) % self.bs
+        if dst is not None and self._same_class(src, dst):
+            ps = self._pool_slot[rids]
+            editor = _TableEditor(self.state)
+            editor.remove(_POOL[src], layers, slots, ps)
+            self.state = editor.commit(self.state)
+            # Rows stay owned by src's allocator until commit exchanges them.
+            self.physical[rids] = INFLIGHT
+            return {"class_rows": ps.copy()}
+        if src in _DEVICE:
+            pool = _POOL[src]
+            ps = self._pool_slot[rids]
+            payload = dict(zip(PAYLOAD_KEYS, self._gather_rows(pool, layers, ps)))
+            editor = _TableEditor(self.state)
+            editor.remove(pool, layers, slots, ps)
+            self.state = editor.commit(self.state)
+            for x in ps:
+                self._free_slot(pool, int(x))
+        else:
+            self._invalidate_prefetch(rids)
+            self._host_sentinel_remove(rids, layers, slots)
+            payload = self._host_payload([self.host_pages.pop(int(r)) for r in rids])
+        self.physical[rids] = INFLIGHT
+        self._pool_slot[rids] = -3
+        return payload
+
+    def peek_cohort(self, rids: np.ndarray, src: int) -> Dict[str, torch.Tensor]:
+        """Non-destructive gather for speculative staging (host tiers only):
+        the source copy stays resident and readable."""
+        if src in _DEVICE:
+            raise ValueError("prefetch sources are host tiers")
+        return self._host_payload([self.host_pages[int(r)] for r in np.asarray(rids, np.int64)])
+
+    def drop_source_copies(self, rids: np.ndarray, src: int) -> None:
+        """Retire the source copies of prefetched pages at commit time: their
+        shadow copy replaces the boundary's source read."""
+        if src in _DEVICE:
+            raise ValueError("prefetch sources are host tiers")
+        rids = np.asarray(rids, np.int64)
+        layers = rids // (self.bs * self.max_pages)
+        slots = (rids // self.max_pages) % self.bs
+        self._host_sentinel_remove(rids, layers, slots)
+        for r in rids:
+            self.host_pages.pop(int(r), None)
+        self.physical[rids] = INFLIGHT
+        self._pool_slot[rids] = -3
+
+    def transcode_cohort(
+        self, payload: Dict[str, torch.Tensor], src: int, dst: int
+    ) -> Dict[str, torch.Tensor]:
+        """Phase 2: one ``transcode_pages`` launch for the whole cohort (K
+        and V stacked) on the cache's device; the same-codec fast path and a
+        ``class_rows`` marker pass through untouched."""
+        if "class_rows" in payload or self._bits[src] == self._bits[dst]:
+            return payload
+        p = int(payload["k_pay"].shape[0])
+        d = {k: torch.as_tensor(payload[k], device=self.device) for k in PAYLOAD_KEYS}
+        pay, sc = kops.transcode_pages(
+            torch.cat([d["k_pay"], d["v_pay"]]), torch.cat([d["k_sc"], d["v_sc"]]),
+            self._bits[src], self._bits[dst],
+        )
+        self.kernel_dispatches += 1
+        return {"k_pay": pay[:p], "k_sc": sc[:p], "v_pay": pay[p:], "v_sc": sc[p:]}
+
+    def commit_cohort(
+        self, rids: np.ndarray, payload: Dict[str, torch.Tensor], src: int, dst: int
+    ) -> np.ndarray:
+        """Phase 3: scatter into the destination tier. Device headroom is
+        re-checked (appends may have raced the cohort); pages that no longer
+        fit spill down-tier, re-transcoding when the spill crosses codecs.
+        Returns the per-rid level actually landed."""
+        rids = np.asarray(rids, np.int64)
+        if "class_rows" in payload:
+            return self._commit_class_rows(rids, payload["class_rows"], src, dst)
+        actual = np.full(rids.size, dst, np.int64)
+        if dst in _DEVICE:
+            fits = self._claim_fits(_POOL[dst], rids)
+            fi = np.where(fits)[0]
+            if fi.size:
+                frids = rids[fi]
+                layers = frids // (self.bs * self.max_pages)
+                slots = (frids // self.max_pages) % self.bs
+                editor = _TableEditor(self.state)
+                sel = torch.as_tensor(fi)
+                self._scatter_device(
+                    dst, frids, layers, slots,
+                    *(payload[k][sel.to(payload[k].device)] for k in PAYLOAD_KEYS), editor,
+                )
+                self.state = editor.commit(self.state)
+            sp = np.where(~fits)[0]
+            if sp.size:
+                sel = torch.as_tensor(sp)
+                sub = {k: v[sel.to(v.device)] for k, v in payload.items()}
+                spill_dst = self._spill_target(dst)
+                sub = self.transcode_cohort(sub, dst, spill_dst)
+                self._spill_depth += 1
+                try:
+                    actual[sp] = self.commit_cohort(rids[sp], sub, src, spill_dst)
+                finally:
+                    self._spill_depth -= 1
+            return actual
+        kp, ks, vp, vs = (_np(payload[k]) for k in PAYLOAD_KEYS)
+        for i, r in enumerate(rids):
+            self.host_pages[int(r)] = (kp[i], ks[i], vp[i], vs[i])
+        self._pool_slot[rids] = -2
+        self._set_placement(rids, dst)
+        layers = rids // (self.bs * self.max_pages)
+        slots = (rids // self.max_pages) % self.bs
+        self._host_sentinel_insert(rids, layers, slots, kp, ks, self._bits[dst])
+        return actual
+
+    def _commit_class_rows(
+        self, rids: np.ndarray, ps: np.ndarray, src: int, dst: int
+    ) -> np.ndarray:
+        """Commit a same-class marker cohort: exchange row ownership into the
+        destination pool and re-point the tables (no payload motion). Pages
+        that no longer fit fall back to the byte-moving path and spill."""
+        ps = np.asarray(ps, np.int64)
+        actual = np.full(rids.size, dst, np.int64)
+        fits = self._claim_fits(_POOL[dst], rids)
+        fi = np.where(fits)[0]
+        if fi.size:
+            frids, fps = rids[fi], ps[fi]
+            layers = frids // (self.bs * self.max_pages)
+            slots = (frids // self.max_pages) % self.bs
+            editor = _TableEditor(self.state)
+            self._exchange_rows(src, dst, frids, fps)
+            editor.insert(_POOL[dst], layers, slots, fps)
+            self.state = editor.commit(self.state)
+            self._set_placement(frids, dst)
+        sp = np.where(~fits)[0]
+        if sp.size:
+            srids, sps = rids[sp], ps[sp]
+            layers = srids // (self.bs * self.max_pages)
+            slots = (srids // self.max_pages) % self.bs
+            spill_dst = self._spill_target(dst)
+            if spill_dst == src:
+                # Spilling back into the source pool: the rows never left it.
+                editor = _TableEditor(self.state)
+                editor.insert(_POOL[src], layers, slots, sps)
+                self.state = editor.commit(self.state)
+                self._set_placement(srids, src)
+                actual[sp] = src
+            else:
+                sub = dict(zip(PAYLOAD_KEYS, self._gather_rows(_POOL[src], layers, sps)))
+                for x in sps:
+                    self._free_slot(_POOL[src], int(x))
+                self._pool_slot[srids] = -3
+                sub = self.transcode_cohort(sub, src, spill_dst)
+                self._spill_depth += 1
+                try:
+                    actual[sp] = self.commit_cohort(srids, sub, src, spill_dst)
+                finally:
+                    self._spill_depth -= 1
+        return actual
+
+    def _spill_target(self, dst: int) -> int:
+        """Down-tier destination for pages that no longer fit at commit: WARM
+        -> COLD -> HOST4; when the host device is down, a top-level COLD
+        overflow is redirected into WARM if WARM has room."""
+        spill = COLD if dst == WARM else HOST4
+        if (
+            spill == HOST4
+            and self._spill_depth == 0
+            and self._dev_names[HOST4] in self._down_devices
+            and self._alloc["warm"].used < self._alloc["warm"].capacity
+        ):
+            self.fault_spill_redirects += 1
+            return WARM
+        return spill
+
+    def device_of(self, level: int) -> str:
+        """Backing-media device name for a placement level."""
+        return self._dev_names[int(level)]
+
+    def page_stored_bytes(self, level: int) -> int:
+        """Media bytes one page occupies at a placement level."""
+        return int(self._page_stored_bytes[int(level)])
+
+    def on_pipeline_drained(self) -> None:
+        """After a batch fully commits: reconcile the desired placement with
+        physical reality and feed the executed media busy time (speculative
+        traffic excluded) back to the manager as contention pressure."""
+        for rids in self._pending_reconcile:
+            ex = rids[self._page_exists[rids] & (self.physical[rids] != INFLIGHT)]
+            self.manager.placement[ex] = self.physical[ex]
+        self._pending_reconcile.clear()
+        spec = self.pipeline.prefetch_busy_by_device
+        busy = {n: q.busy_s - spec.get(n, 0.0) for n, q in self.media_queues.items()}
+        delta = {n: busy[n] - self._media_busy_snapshot.get(n, 0.0) for n in busy}
+        self._media_busy_snapshot = busy
+        window_s = self.manager.cfg.window_steps * self.pipeline.step_period_s
+        self.manager.note_media_charges(delta, window_s)
+
+    def drain_migrations(self) -> int:
+        """Block until every in-flight migration cohort commits."""
+        if self.pipeline.busy:
+            return self.pipeline.drain()
+        return 0
+
+    # ------------------------------------------------ speculative prefetch
+    def prefetch_tick(self) -> bool:
+        """One decode step's speculative work: emit this window's warming
+        cohort (at most one non-empty emission per window) and advance
+        speculative staging one phase. A no-op while demand cohorts fly."""
+        if not self.prefetch_enabled or self.pipeline.busy:
+            return False
+        if not self._prefetch_window_emitted:
+            if self._emit_prefetch():
+                self._prefetch_window_emitted = True
+        return self.pipeline.tick()
+
+    def _emit_prefetch(self) -> int:
+        """Ask the predictor for warming host pages and queue their raw
+        source-codec bytes for speculative staging."""
+        eligible = ((self.physical == HOST8) | (self.physical == HOST4)) & self._page_exists
+        for rid in self.pipeline.speculative_rids():
+            eligible[rid] = False
+        if not eligible.any():
+            return 0
+        fast = int(((self.physical == WARM) | (self.physical == COLD)).sum())
+        cand = self.manager.prefetch_candidates(
+            eligible, top_k=max(fast, 1), max_regions=self.prefetch_max_pages
+        )
+        if cand.size == 0:
+            return 0
+        cohorts = [
+            (cand[self.physical[cand] == s], int(s))
+            for s in (HOST8, HOST4)
+            if bool((self.physical[cand] == s).any())
+        ]
+        return self.pipeline.submit_prefetch(cohorts)
+
     # ------------------------------------------------- per-page migration
     # The per-page path: the equivalence oracle of ``migrate_batch`` and the
     # single-page evictions of ``append_page``. Pages round-trip through
@@ -734,7 +1082,8 @@ class TieredKVCache:
         return kp[0], ks[0], vp[0], vs[0]
 
     def _fetch_dense(self, rid, layer, slot, page):
-        """Decompress a page from wherever it lives (f32 on the device)."""
+        """Decompress a page from wherever it lives: two ``dequant_pages``
+        launches (K, V) on the cache's device, f32 out."""
         src = int(self.physical[rid])
         ps = int(self._pool_slot[rid])
         self.kernel_dispatches += 2
@@ -745,8 +1094,8 @@ class TieredKVCache:
                 torch.as_tensor(x, device=self.device) for x in self.host_pages[rid]
             )
         bits = self._bits[src]
-        return (kref.dequant_kv_page(k_pay, k_sc, bits),
-                kref.dequant_kv_page(v_pay, v_sc, bits))
+        return (kops.dequant_pages(k_pay[None], k_sc[None], bits, torch.float32)[0],
+                kops.dequant_pages(v_pay[None], v_sc[None], bits, torch.float32)[0])
 
     def _remove(self, rid, layer, slot, page):
         src = int(self.physical[rid])
@@ -755,6 +1104,7 @@ class TieredKVCache:
             self._table_remove(_POOL[src], layer, slot, ps)
             self._free_slot(_POOL[src], ps)
         else:
+            self._invalidate_prefetch(np.array([rid], np.int64))
             self._host_sentinel_remove(
                 np.array([rid], np.int64), np.array([layer]), np.array([slot])
             )
@@ -802,13 +1152,20 @@ class TieredKVCache:
 
     # ------------------------------------------------------------ release
     def release_slot_pages(self, slot: int) -> None:
-        """Request finished: free all of one batch slot's pages, batched."""
+        """Request finished: free all of one batch slot's pages, batched. If
+        any of this slot's pages ride an in-flight cohort the pipeline
+        drains first (they must not strand in the staging ring)."""
+        if self.pipeline.busy and bool(
+            (self.physical[self._rid_slot == slot] == INFLIGHT).any()
+        ):
+            self.pipeline.drain()
         rids = np.array(
             [self.rid(layer, slot, page)
              for layer in range(self.la) for page in range(self.max_pages)],
             np.int64,
         )
         rids = rids[self._page_exists[rids]]
+        self._invalidate_prefetch(rids)
         for r in rids:
             src = int(self.physical[r])
             ps = int(self._pool_slot[r])
@@ -894,22 +1251,130 @@ class TieredKVCache:
             )
         return counts
 
+    def _observe_adaptive_media(self) -> None:
+        """Feed compressibility-adaptive media devices the real encoded
+        sizes of resident host payloads (an inline line compressor narrows
+        any 64-codeword line whose bytes fit int4 range; scales ride
+        uncompressed). Runs at the window boundary after the pipeline
+        drained, where serial and async runs hold byte-identical
+        ``host_pages``."""
+        adaptive = adaptive_devices(self.media_queues)
+        if not adaptive:
+            return
+        line = kref.CXL_LINE_ELEMS
+        for name, dev in adaptive.items():
+            levels = [lvl for lvl in (HOST8, HOST4) if self._dev_names[lvl] == name]
+            if not levels:
+                dev.commit_window()
+                continue
+            nominal = 0
+            wire = 0
+            for lvl in levels:
+                rids = np.nonzero((self.physical == lvl) & self._page_exists)[0]
+                for rid in rids:
+                    kp, ks, vp, vs = self.host_pages[int(rid)]
+                    for pay in (kp, vp):
+                        nominal += int(pay.size) * int(pay.dtype.itemsize)
+                        q = np.ascontiguousarray(pay).reshape(-1).view(np.int8)
+                        n_lines = q.size // line
+                        if n_lines:
+                            lines = q[: n_lines * line].reshape(-1, line)
+                            narrow = (
+                                np.abs(lines.astype(np.int32)).max(axis=1) <= kref.CXL_NARROW_QMAX
+                            )
+                            n_narrow = int(narrow.sum())
+                            wire += n_narrow * (line // 2) + (n_lines - n_narrow) * line
+                        wire += q.size - n_lines * line
+                    for sc in (ks, vs):
+                        b = int(sc.size) * int(sc.dtype.itemsize)
+                        nominal += b
+                        wire += b
+            if nominal > 0:
+                dev.observe(float(nominal), float(wire))
+                ratio = float(nominal) / float(max(wire, 1))
+                self.manager.note_media_ratio(name, ratio)
+                nominal_ratios = self.manager.tierset.ratios()
+                for lvl in levels:
+                    self.manager.update_measured_ratio(lvl, nominal_ratios[lvl] * ratio)
+            dev.commit_window()
+
+    def _advance_fault_window(self) -> None:
+        """Advance the fault clock one window and fold fault telemetry into
+        the manager (down devices, retries, corruptions, aborts). Runs after
+        the pipeline drained and before the manager plans, the same point in
+        serial and async runs."""
+        self._fault_window += 1
+        for q in self.media_queues.values():
+            q.device.note_window(self._fault_window)
+        self._down_devices = {
+            q.device.name for q in self.media_queues.values() if q.device.down_now()
+        }
+        self.manager.note_devices_down(self._down_devices)
+        p = self.pipeline
+        cur = (p.fault_retries, p.corruptions_detected, p.cohorts_aborted)
+        prev = self._fault_counter_snapshot
+        self.manager.note_fault_events(
+            retries=cur[0] - prev[0],
+            corruptions=cur[1] - prev[1],
+            aborted=cur[2] - prev[2],
+        )
+        self._fault_counter_snapshot = cur
+
     # --------------------------------------------------------- window logic
     def end_window(self):
-        """Run the placement model over existing pages and execute the plan
-        to completion before returning (the serial executor: the window
-        boundary blocks)."""
+        """Run the placement model over existing pages and execute the plan.
+
+        Serial mode (the oracle): the batched cohort executor runs the plan
+        to completion before returning. Async mode: the cohorts go to the
+        media pipeline and the boundary returns; decode steps tick the
+        pipeline and the desired/physical reconcile happens when the batch
+        drains. A previous window's stragglers drain first, speculative
+        cohorts finish into the held store, and moves touching a down device
+        are deferred before the mode split."""
+        if self.pipeline.busy:
+            self.pipeline.drain()
+        if self.prefetch_enabled:
+            self.pipeline.finish_speculative()
+        self._observe_adaptive_media()
+        if self.fault_plan is not None:
+            self._advance_fault_window()
         plan = self.manager.end_window()
+        self._prefetch_window_emitted = False
         if plan.regions.size == 0:
+            if self.prefetch_enabled:
+                self.pipeline.discard_speculative()  # nothing to claim: all misses
             return plan, 0
         # The manager may recommend DRAM(0) for hot pages; KV pages go warm
         # instead (the recent window plays DRAM's role).
         regions = np.asarray(plan.regions, np.int64)
         dst = plan.dst.copy()
         dst[dst == 0] = WARM
+        if self._down_devices:
+            down_idx = np.array(
+                [i for i, n in enumerate(self._dev_names) if n in self._down_devices],
+                np.int64,
+            )
+            bad = np.isin(self.physical[regions], down_idx) | np.isin(dst, down_idx)
+            self.fault_deferred_pages += int(bad.sum())
+            regions, dst = regions[~bad], dst[~bad]
+        if self.async_migration:
+            cohorts = self.plan_cohorts(regions, dst)
+            prestaged: Dict[int, Dict[str, torch.Tensor]] = {}
+            if self.prefetch_enabled:
+                # Claim held pages the plan confirmed (hits); discard the
+                # rest (misses), returning their ring credits.
+                for crids, s, _d in cohorts:
+                    if s not in _DEVICE:
+                        prestaged.update(self.pipeline.claim_prefetched(crids, s))
+                self.pipeline.discard_speculative()
+            self._pending_reconcile.append(np.asarray(plan.regions, np.int64))
+            queued = self.pipeline.submit(cohorts, prestaged=prestaged or None)
+            if not self.pipeline.busy:
+                self.on_pipeline_drained()  # empty after the pre-passes
+            return plan, queued
         moved = self.migrate_batch(regions, dst)
-        # Price reality: actual placements (spills included) and planned
-        # no-ops go back into manager.placement.
+        # Price reality: actual placements (spills included), planned no-ops
+        # and fault-deferred moves go back into manager.placement.
         ex = plan.regions[self._page_exists[plan.regions]]
         self.manager.placement[ex] = self.physical[ex]
         return plan, moved

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain versions, on a GPU.
 
-Torch-only (the GPU host has no JAX): quant and transcode byte-equal, fused
-attention within rtol = atol = 2e-4, across the reference sweep of page
-shapes and head groupings (GQA included), mixed int8/int4/host/invalid
-table rows and an empty recent window. Every test skips where
+Torch-only (the GPU host has no JAX): quant, transcode and dequant
+(f32 and bf16 out) byte-equal, fused and per-pool attention within
+rtol = atol = 2e-4, across the reference sweep of page shapes and head
+groupings (GQA included), mixed int8/int4/host/invalid table rows, empty
+pools and recent windows; the cache's executors (serial, per-page, and the
+async pipeline through the pinned ring) on the GPU against the CPU. Every
+test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -13,9 +16,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.kernels import quant_page, transcode_page  # noqa: E402
 
 SWEEP = [(4, 8, 1, 32), (4, 16, 4, 64), (8, 32, 2, 128), (2, 64, 8, 128)]
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -74,6 +77,85 @@ def test_fused_attention_matches_plain(gen, t, kv, hd, group):
         torch.testing.assert_close(g, w, **TOL)
 
 
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequant_pages_bit_equal(gen, shape, out_dtype):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    before = build.launch_counts()["dequant_pages"]
+    for bits in (8, 4):
+        pay, sc = ref.quant_kv_page(x, bits)
+        got = dequant_page.dequant_pages(pay, sc, bits, out_dtype)
+        want = dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, want)
+    assert build.launch_counts()["dequant_pages"] - before == 2
+
+
+@pytest.mark.parametrize("t, kv, hd", [(8, 1, 32), (16, 4, 64), (16, 2, 128), (16, 20, 128)])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_quant_attention_matches_plain(gen, t, kv, hd, group, bits):
+    """One pool: a long, a one-page and an empty sequence (m = l = 0), and
+    table tails past n_pages; a valid entry outside the pool raises."""
+    b, mp, p, h = 3, 9, 7, kv * group
+    pay, sc = ref.quant_kv_page(torch.randn((p, t, kv, hd), generator=gen, device="cuda"), bits)
+    vpay, vsc = ref.quant_kv_page(torch.randn((p, t, kv, hd), generator=gen, device="cuda"), bits)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.randint(0, p, (b, mp), generator=gen, device="cuda", dtype=torch.int32)
+    n = torch.tensor([mp, 1, 0], dtype=torch.int32, device="cuda")
+    args = (q, pay, sc, vpay, vsc, table, n, bits)
+    before = build.launch_counts()["paged_quant_attention"]
+    got = pa.paged_quant_attention(*args)
+    want = ref.paged_quant_attention(*args)
+    assert build.launch_counts()["paged_quant_attention"] - before == 1
+    for name, g, w in zip(("out", "m", "l", "mass", "base"), got, want):
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m: f"{name}: {m}")
+    assert float(got[1][2].abs().max()) == 0.0 and float(got[2][2].abs().max()) == 0.0
+    bad = table.clone()
+    bad[0, 3] = p
+    with pytest.raises(IndexError):
+        pa.paged_quant_attention(q, pay, sc, vpay, vsc, bad, n, bits)
+
+
+def test_per_pool_path_matches_fused(gen):
+    """``use_fused(False)``: one per-pool launch per pool, outputs and
+    hotness equal to the fused launch within 2e-4."""
+    t, kv, hd, b, h, r, mp = 16, 2, 64, 2, 8, 6, 5
+
+    def pool(bits, n_valid):
+        pay, sc = ref.quant_kv_page(torch.randn((6, t, kv, hd), generator=gen, device="cuda"),
+                                    bits)
+        vpay, vsc = ref.quant_kv_page(torch.randn((6, t, kv, hd), generator=gen, device="cuda"),
+                                      bits)
+        return dict(k_pages=pay, k_scales=sc, v_pages=vpay, v_scales=vsc,
+                    page_table=torch.randint(0, 6, (b, mp), generator=gen, device="cuda",
+                                             dtype=torch.int32),
+                    n_pages=torch.tensor(n_valid, dtype=torch.int32, device="cuda"), bits=bits)
+
+    pools = {"warm": pool(8, [4, 0]), "cold": pool(4, [2, 5])}
+    host = dict(summary=torch.randn((5, kv, hd), generator=gen, device="cuda"),
+                table=torch.randint(0, 5, (b, 3), generator=gen, device="cuda",
+                                    dtype=torch.int32),
+                n=torch.tensor([2, 3], dtype=torch.int32, device="cuda"), page_tokens=t)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda")
+    rk = torch.randn((b, r, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    rv = torch.randn((b, r, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    rlen = torch.tensor([r, 0], dtype=torch.int32, device="cuda")
+    try:
+        ops.use_fused(True)
+        f_out, f_hot = ops.tiered_decode_attention(q, pools, rk, rv, rlen, with_telemetry=True,
+                                                   host=host)
+        ops.use_fused(False)
+        before = build.launch_counts()["paged_quant_attention"]
+        p_out, p_hot = ops.tiered_decode_attention(q, pools, rk, rv, rlen, with_telemetry=True,
+                                                   host=host)
+        assert build.launch_counts()["paged_quant_attention"] - before == 2
+    finally:
+        ops.use_fused(True)
+    torch.testing.assert_close(p_out, f_out, **TOL)
+    for k in f_hot:
+        torch.testing.assert_close(p_hot[k], f_hot[k], **TOL, msg=lambda m: f"{k}: {m}")
+
+
 def test_wrappers_reject_bad_operands(gen):
     x = torch.randn((2, 8, 2, 32), generator=gen, device="cuda")
     with pytest.raises(TypeError):
@@ -83,6 +165,10 @@ def test_wrappers_reject_bad_operands(gen):
     p, s = quant_page.quant_pages(x, 8)
     with pytest.raises(ValueError):
         transcode_page.transcode_pages(p, s.cpu(), 8, 4)
+    with pytest.raises(ValueError):
+        dequant_page.dequant_pages(p, s.cpu(), 8)
+    with pytest.raises(TypeError):
+        dequant_page.dequant_pages(p, s, 8, torch.float16)
 
 
 def test_cache_paths_on_the_gpu_match_the_cpu(gen):
@@ -125,3 +211,62 @@ def test_cache_paths_on_the_gpu_match_the_cpu(gen):
     for r in a.host_pages:
         for x, y in zip(a.host_pages[r], b.host_pages[r]):
             np.testing.assert_array_equal(x, y)
+
+
+def test_async_pipeline_on_the_gpu_matches_the_cpu(gen):
+    """The async pipeline with the cache on the GPU (pinned ring, device
+    cohorts, the transcode and dequant kernels) against the same cache on
+    the CPU: the same placements, host payloads, sentinel centroids and
+    pipeline counters, a clean ring, and the kernels really launched."""
+    import numpy as np
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.manager import ManagerConfig
+    from repro_torch.media.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.kv_cache import TieredKVCache
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab_size=128, head_dim=16)
+    plan = FaultPlan([FaultEvent(k, d, 1, 99) for k in ("transient", "corrupt")
+                      for d in ("hbm", "host_dram_pcie")])
+
+    def make(device):
+        return TieredKVCache(cfg, 2, 2, 8, 64, 16, ManagerConfig(policy="analytical", alpha=0.1),
+                             warm_frac=0.5, async_migration=True, ring_slots=8, prefetch=True,
+                             fault_plan=plan, device=device)
+
+    caches = {"cuda": make("cuda"), "cpu": make("cpu")}
+    assert caches["cuda"].staging_ring.buf.is_pinned()
+    rng = np.random.default_rng(0)
+    coords = [(la, sl, pg) for la in range(2) for sl in range(2) for pg in range(8)]
+    k = torch.from_numpy(rng.normal(0, 1, (len(coords), 8, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 1, (len(coords), 8, 2, 16)).astype(np.float32))
+    before = build.launch_counts()
+    for c in caches.values():
+        c.append_pages(coords, k.to(c.device), v.to(c.device))
+        for w in range(4):
+            counts = np.zeros(c.n_regions)
+            counts[np.arange(w, c.n_regions, 3)] = 500.0
+            c.manager.record_access_counts(counts)
+            for _ in range(6):
+                if c.pipeline.busy:
+                    c.pipeline.tick()
+                else:
+                    c.prefetch_tick()
+            c.end_window()
+        c.drain_migrations()
+    launched = {n: build.launch_counts()[n] - before[n] for n in before}
+    a, b = caches["cuda"], caches["cpu"]
+    np.testing.assert_array_equal(a.physical, b.physical)
+    assert a.pipeline.pages_moved == b.pipeline.pages_moved > 0
+    for f in ("fault_retries", "corruptions_detected", "prefetch_staged", "prefetch_hits"):
+        assert getattr(a.pipeline, f) == getattr(b.pipeline, f), f
+    assert a.pipeline.corruptions_detected > 0
+    assert set(a.host_pages) == set(b.host_pages)
+    for r in a.host_pages:
+        for x, y in zip(a.host_pages[r], b.host_pages[r]):
+            np.testing.assert_array_equal(x, y)
+    for f in ("c8_k", "c4_v", "c4_v_scales", "host_summary", "warm_table", "host_n"):
+        assert torch.equal(getattr(a.state, f).cpu(), getattr(b.state, f)), f
+    assert a.staging_ring.held_slots == 0
+    assert launched["transcode_pages"] > 0 and launched["dequant_pages"] > 0

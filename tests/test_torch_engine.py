@@ -1,12 +1,20 @@
 """The port's tiered serving loop against the JAX package, on the CPU.
 
-Both engines run the serial migration executor with prefetch off on the
-``qwen1_5_4b`` smoke config (weights carried across from the reference's
-init), 2 slots and 3 requests so slots get reused. They step in lockstep:
-greedy tokens, physical and desired placements after every window,
-migrations and billed attention launches must be equal. Logits of one tiered
-decode step from the same converted state are held to the model test's bf16
-tolerance (see ``test_torch_model.py``); per-page hotness to 2e-4.
+Both engines run on the ``qwen1_5_4b`` smoke config (weights carried across
+from the reference's init), 2 slots and 3 requests so slots get reused, and
+step in lockstep: greedy tokens, physical and desired placements, migrations
+and billed attention launches must be equal — with the serial migration
+executor, and in the five modes of the async media pipeline (async, async +
+prefetch, ``faults=True``, a ``seeded_storm`` fault plan, and host tiers on
+``cxl_hw``), where the pipeline's overlap and prefetch counters, the
+kernel-dispatch bill and every media queue's busy time and bytes must agree
+too. Logits of one tiered decode step from the same converted state are held
+to the model test's bf16 tolerance (see ``test_torch_model.py``); per-page
+hotness to 2e-4.
+
+The prompt seeds were checked to keep greedy decoding clear of exact ties:
+the reference's bf16 logits can tie (margin 0.0) where the port's differ by
+one ulp, which flips argmax (ROADMAP §3).
 """
 
 import dataclasses
@@ -24,10 +32,12 @@ from repro.configs import ParallelConfig  # noqa: E402
 from repro.configs import TierScapeRunConfig as JRunConfig  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.launch.mesh import make_mesh  # noqa: E402
+from repro.media.faults import FaultPlan as JFaultPlan  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
 from repro.serving.engine import TieredEngine as JEngine  # noqa: E402
 from repro_torch.configs import TierScapeRunConfig, get_smoke as port_smoke  # noqa: E402
+from repro_torch.media.faults import FaultPlan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
@@ -44,12 +54,18 @@ PARAM_KEY, PROMPT_SEED, NEW_TOKENS = 0, 1, 20
 
 
 @pytest.fixture(scope="module")
-def lockstep():
+def models():
     cfg = get_smoke("qwen1_5_4b")
     jm = JModel(cfg)
     jp = jm.init(jax.random.PRNGKey(PARAM_KEY))
     tm = Model(port_smoke("qwen1_5_4b"), device="cpu")
     tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    return cfg, jm, jp, tm, tp
+
+
+@pytest.fixture(scope="module")
+def lockstep(models):
+    cfg, jm, jp, tm, tp = models
     je = JEngine(jm, jp, ts=JRunConfig(**RUN), **ENGINE)
     te = TieredEngine(tm, tp, ts=TierScapeRunConfig(**RUN), device="cpu", **ENGINE)
     rng = np.random.default_rng(PROMPT_SEED)
@@ -172,23 +188,80 @@ def test_engine_defaults_to_cuda():
         serve.make_tiered_decode_step(model, ts)
 
 
-@pytest.mark.parametrize("change", [
-    dict(async_migration=True), dict(prefetch=True), dict(faults=True),
-    dict(fault_plan=object()), dict(host_media_device="cxl_hw"),
-])
-def test_unported_engine_options_raise(change):
-    cfg = port_smoke("qwen1_5_4b")
-    model = Model(cfg, device="cpu")
-    base = dict(enabled=True, async_migration=False, prefetch=False, faults=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TieredEngine(model, {}, ts=TierScapeRunConfig(**{**base, **change}), device="cpu")
+# The engine's default is async migration with prefetch; each mode below
+# changes one option of it (or turns prefetch off).
+ASYNC = dict(RUN, async_migration=True, prefetch=True)
+MODES = {
+    "async": dict(prefetch=False),
+    "async_prefetch": {},
+    "faults": dict(faults=True),
+    "storm": dict(fault_plan="storm"),
+    "cxl_hw": dict(host_media_device="cxl_hw"),
+}
+MODE_PROMPT_SEED = 2
+
+
+def _run_config(cls, plan_cls, change):
+    kw = dict(ASYNC, **change)
+    if kw.get("fault_plan") == "storm":
+        kw["fault_plan"] = plan_cls.seeded_storm("host_dram_pcie", seed=3, windows=8)
+    return cls(**kw)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_engine_mode_matches_reference(models, mode):
+    """The async pipeline in lockstep with the JAX engine: tokens, physical
+    and desired placements after every step, the stats counters, the
+    pipeline's fault counters, the kernel-dispatch bill, and each media
+    queue's busy seconds and bytes (modeled time, rel 1e-12)."""
+    cfg, jm, jp, tm, tp = models
+    je = JEngine(jm, jp, ts=_run_config(JRunConfig, JFaultPlan, MODES[mode]), **ENGINE)
+    te = TieredEngine(tm, tp, ts=_run_config(TierScapeRunConfig, FaultPlan, MODES[mode]),
+                      device="cpu", **ENGINE)
+    rng = np.random.default_rng(MODE_PROMPT_SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (40, 27, 33)]
+    jreqs = [je.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    treqs = [te.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    while any(s is not None for s in je.slots) or je.queue:
+        assert je.stats.steps < 100
+        je._fill_slots()
+        te._fill_slots()
+        je.step()
+        te.step()
+        step = je.stats.steps
+        np.testing.assert_array_equal(te.cache.physical, je.cache.physical, err_msg=f"step {step}")
+        np.testing.assert_array_equal(te.cache.manager.placement, je.cache.manager.placement,
+                                      err_msg=f"step {step}")
+    js, ts = je.finish(), te.finish()
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert all(len(r.out_tokens) == NEW_TOKENS and r.done for r in treqs)
+    for f in ("steps", "windows", "migrations", "completed", "overlapped_steps",
+              "prefetch_staged", "prefetch_hits", "prefetch_misses", "attn_launches"):
+        assert getattr(ts, f) == getattr(js, f), f
+    assert ts.overlapped_steps > 0 and ts.migrations > 0
+    assert ts.prefetch_staged == ts.prefetch_hits + ts.prefetch_misses
+    assert te.cache.kernel_dispatches == je.cache.kernel_dispatches
+    for f in ("fault_retries", "cohorts_aborted", "corruptions_injected",
+              "corruptions_detected", "corruptions_repaired", "pages_moved", "cohorts_done"):
+        assert getattr(te.cache.pipeline, f) == getattr(je.cache.pipeline, f), f
+    assert te.cache.fault_deferred_pages == je.cache.fault_deferred_pages
+    assert set(te.cache.media_queues) == set(je.cache.media_queues)
+    for name, jq in je.cache.media_queues.items():
+        tq = te.cache.media_queues[name]
+        assert tq.bytes_total == jq.bytes_total, name
+        assert tq.busy_s == pytest.approx(jq.busy_s, rel=1e-12), name
+    ring = te.cache.staging_ring
+    assert ring.held_slots == 0 and ring.free_slots == ring.n_slots
+    if mode == "faults":
+        assert te.cache.pipeline.fault_retries > 0
+        assert te.cache.pipeline.corruptions_detected > 0
 
 
 def test_unported_family_raises():
     cfg = port_smoke("qwen1_5_4b")
     hybrid = types.SimpleNamespace(cfg=dataclasses.replace(cfg, family="hybrid"),
                                    device=torch.device("cpu"))
-    ts = TierScapeRunConfig(enabled=True, async_migration=False, prefetch=False, faults=False)
+    ts = TierScapeRunConfig(enabled=True)
     with pytest.raises(NotImplementedError, match="family"):
         TieredEngine(hybrid, {}, ts=ts, device="cpu")
     with pytest.raises(NotImplementedError, match="family"):

@@ -7,7 +7,9 @@ because the tensors lie on the CPU, and those plain versions are held to the
 JAX Pallas kernels (interpret mode) and ``repro.kernels.ref`` with the
 reference's own bars: quant scales within rtol 1e-6 and payloads within one
 quantization step (< 2% codes differ), transcode and the int4 layout
-byte-equal, fused attention within rtol = atol = 2e-4.
+byte-equal, dequant equal bit for bit (f32 and bf16 out), fused and per-pool
+attention within rtol = atol = 2e-4, and the per-pool ``use_fused(False)``
+path equal to the fused one at the bars of ``tests/test_fused_attention.py``.
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.dequant_page import dequant_pages as j_dequant  # noqa: E402
+from repro.kernels.paged_attention import paged_quant_attention as j_paged  # noqa: E402
 from repro.kernels import packing as jpacking  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.paged_attention import fused_tiered_attention as j_fused  # noqa: E402
@@ -25,7 +29,7 @@ from repro.kernels.quant_page import quant_pages as j_quant  # noqa: E402
 from repro.kernels.transcode_page import transcode_pages as j_transcode  # noqa: E402
 from repro_torch.kernels import build, ops, packing, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.kernels import quant_page, transcode_page  # noqa: E402
+from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.models.convert import tensor_from_numpy  # noqa: E402
 
 SWEEP = [
@@ -36,6 +40,13 @@ SWEEP = [
     (2, 64, 8, 128),
 ]
 TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture(autouse=True)
+def _restore_fused_toggle():
+    yield
+    ops.use_fused(True)
+    jops.use_fused(True)
 
 
 def _t(x) -> torch.Tensor:
@@ -88,6 +99,42 @@ def test_transcode_pages_byte_equal(shape, route):
     # Same width is the identity: the inputs come back, no launch.
     ip, isc = ops.transcode_pages(tpay, tsc, src, src)
     assert ip is tpay and isc is tsc
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_dequant_pages_matches_pallas_bit_for_bit(shape, bits, out_dtype):
+    rng = np.random.default_rng(13)
+    jpay, jsc = jref.quant_kv_page(jnp.asarray(rng.normal(0, 1, shape), jnp.float32), bits)
+    want = j_dequant(jpay, jsc, bits, getattr(jnp, out_dtype))
+    got = dequant_page.dequant_pages(_t(jpay), _t(jsc), bits, getattr(torch, out_dtype))
+    assert got.dtype == getattr(torch, out_dtype) and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(_n(got), _n(want))
+    np.testing.assert_array_equal(
+        _n(ops.dequant_pages(_t(jpay), _t(jsc), bits, getattr(torch, out_dtype))),
+        _n(jops.dequant_pages(jpay, jsc, bits, getattr(jnp, out_dtype))))
+
+
+@pytest.mark.parametrize("kv,heads", [(1, 4), (2, 8), (4, 4), (8, 16)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_quant_attention_matches_pallas(kv, heads, bits):
+    """tests/test_kernels.py's case: one pool, a full, a one-page and an
+    empty sequence (m = 0, l = 0), tails past ``n_pages``."""
+    rng = np.random.default_rng(7)
+    p, t, hd, b, mp = 6, 16, 64, 3, 4
+    pages = jnp.asarray(rng.normal(0, 1, (p, t, kv, hd)), jnp.bfloat16)
+    kp, ks = jref.quant_kv_page(pages, bits)
+    vp, vs = jref.quant_kv_page(pages * 0.3, bits)
+    q = jnp.asarray(rng.normal(0, 1, (b, heads, hd)), jnp.float32)
+    table = jnp.asarray(rng.integers(0, p, (b, mp)), jnp.int32)
+    n_pages = jnp.asarray([mp, 1, 0], jnp.int32)
+    want = j_paged(q, kp, ks, vp, vs, table, n_pages, bits)
+    got = pa.paged_quant_attention(*(_t(a) for a in (q, kp, ks, vp, vs, table, n_pages)), bits)
+    for field, g, w in zip(("out", "m", "l", "mass", "base"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=field, **TOL)
+    assert float(got[1][2].abs().max()) == 0.0 and float(got[2][2].abs().max()) == 0.0
+    assert (got[3][1:, 1:].numpy() == 0).all() and (got[4][2].numpy() == pa.NEG_INF).all()
 
 
 def test_int4_nibble_layout_byte_equal():
@@ -238,10 +285,78 @@ def test_class_operands_alias_by_identity():
     ops.reset_copy_bytes()
 
 
-def test_per_pool_path_is_not_ported():
+def _per_pool_vs_fused(pools, host, q, rk, rv, rlen):
+    """The port's per-pool path against its fused path and against the
+    reference's per-pool path, outputs and hotness at 2e-4."""
+    args = (_t(q), _to_port(pools), _t(rk), _t(rv), _t(rlen))
+    port_host = None if host is None else _to_port(host)
     ops.use_fused(True)
-    with pytest.raises(NotImplementedError, match="per-pool"):
-        ops.use_fused(False)
+    f_out, f_hot = ops.tiered_decode_attention(*args, with_telemetry=True, host=port_host)
+    ops.use_fused(False)
+    p_out, p_hot = ops.tiered_decode_attention(*args, with_telemetry=True, host=port_host)
+    jops.use_fused(False)
+    j_out, j_hot = jops.tiered_decode_attention(q, pools, rk, rv, rlen, with_telemetry=True,
+                                                host=host)
+    assert set(p_hot) == set(f_hot) == set(j_hot)
+    for want_out, want_hot in ((f_out, f_hot), (j_out, j_hot)):
+        np.testing.assert_allclose(p_out.numpy(), _n(want_out), **TOL)
+        for k in p_hot:
+            np.testing.assert_allclose(p_hot[k].numpy(), _n(want_hot[k]), err_msg=k, **TOL)
+    return p_hot
+
+
+@pytest.mark.parametrize("n_tiers", [2, 3, 4])
+def test_per_pool_path_matches_fused(n_tiers):
+    """tests/test_fused_attention.py's mixed-codec case on the port."""
+    rng = np.random.default_rng(7)
+    bits_seq = (8, 4, 8, 4)
+    pools = {f"t{i}": _mk_pool(rng, 6, bits_seq[i], 4, rng.integers(1, 5, B))
+             for i in range(n_tiers)}
+    host = _mk_host(rng)
+    q = jnp.asarray(rng.normal(0, 1, (B, H, HD)), jnp.float32)
+    rk = jnp.asarray(rng.normal(0, 1, (B, R, KV, HD)), jnp.bfloat16)
+    rv = jnp.asarray(rng.normal(0, 1, (B, R, KV, HD)), jnp.bfloat16)
+    _per_pool_vs_fused(pools, host, q, rk, rv, jnp.asarray([R, R // 2], jnp.int32))
+    ops.use_fused(False)
+    assert ops.decode_launches_per_step(n_pools=n_tiers) == n_tiers
+    ops.use_fused(True)
+    assert ops.decode_launches_per_step(n_pools=n_tiers) == 1
+
+
+@pytest.mark.parametrize("name", ["empty_pools", "all_host", "recent_len_zero"])
+def test_per_pool_path_edges_match_fused(name):
+    """An empty pool contributes zero hotness (m = 0 per pool), all-host
+    and empty-recent-window sequences merge like the fused kernel."""
+    hot = _per_pool_vs_fused(*_case(name))
+    if name == "empty_pools":
+        assert all(float(hot[k].abs().sum()) == 0.0 for k in hot if k != "host")
+        assert float(hot["host"].sum()) > 0.0
+
+
+def test_per_pool_engine_bills_launches_per_pool():
+    """Under ``use_fused(False)`` the engine bills the reference's per-pool
+    launch structure, layers x pools per decode step (``attn_launches``);
+    the fused default bills one launch per layer."""
+    from repro_torch.configs import TierScapeRunConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import TieredEngine
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab_size=128, head_dim=16)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    prompt = np.random.default_rng(9).integers(1, cfg.vocab_size, 30)
+    for fused, per_step in ((False, 2 * 2), (True, 2)):
+        ops.use_fused(fused)
+        jops.use_fused(fused)
+        assert ops.decode_launches_per_step(n_pools=2) == jops.decode_launches_per_step(n_pools=2)
+        eng = TieredEngine(model, params, batch_slots=2, page_tokens=8, max_seq_len=64,
+                           recent_window=16, device="cpu",
+                           ts=TierScapeRunConfig(enabled=True, window_steps=4))
+        eng.submit(prompt, max_new_tokens=6)
+        stats = eng.run(max_steps=20)
+        assert stats.steps > 0 and stats.attn_launches == per_step * stats.steps
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch():
@@ -250,7 +365,10 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch():
     pages = torch.from_numpy(rng.normal(0, 1, (2, T, KV, HD)).astype(np.float32))
     p, s = quant_page.quant_pages(pages, 8)
     transcode_page.transcode_pages(p, s, 8, 4)
+    dequant_page.dequant_pages(p, s, 8, torch.float32)
     pools, host, q, rk, rv, rlen = _case("mixed")
-    ops.tiered_decode_attention(_t(q), _to_port(pools), _t(rk), _t(rv), _t(rlen),
-                                host=_to_port(host))
+    for fused in (True, False):
+        ops.use_fused(fused)
+        ops.tiered_decode_attention(_t(q), _to_port(pools), _t(rk), _t(rv), _t(rlen),
+                                    host=_to_port(host))
     assert build.launch_counts() == {k: 0 for k in build.LAUNCHES}
