@@ -1,16 +1,19 @@
 """GPU smoke of the PyTorch/CUDA port: builds the kernels, holds each against
-its plain version, and drives the tiered serving loop at the full width of
-``qwen1_5_4b`` on one GPU, serially and on the default async media path.
+its plain version, and drives the tiered serving loop on one GPU at the full
+width of ``qwen1_5_4b`` (serially and on the default async media path) and
+of ``zamba2_1_2b`` (the hybrid family, host tiers on the ``cxl_hw``
+expander).
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card's name and power limit, build the five CUDA kernels (one
-     ``nvcc`` per source, all started together);
-  2. each kernel vs its plain version on the card at the serving path's
-     full-width shapes (T=16, KV=20, hd=128; quant/transcode/dequant
-     byte-equal, fused and per-pool attention within 2e-4, the per-pool one
-     with an empty pool and tails past ``n_pages``);
+  1. print the card's name and power limit, build the six CUDA sources
+     (seven kernels; one ``nvcc`` per source, all started together);
+  2. each kernel vs its plain version on the card at both serving paths'
+     full-width page shapes (T=16; KV=20, hd=128 and KV=32, hd=64;
+     quant/transcode/dequant/cxl encode/cxl decode byte-equal, fused and
+     per-pool attention within 2e-4, the per-pool one with an empty pool and
+     tails past ``n_pages``);
   3. the full-width engine (40 layers, random bf16 weights from a seed)
      serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
      first with serial migration (the blocking executor; at policy weight
@@ -27,10 +30,25 @@ Phases (any failure exits non-zero before the result line):
      branch, and the per-pool step vs the fused step (logits, hotness);
   5. each kernel held to its plain version again and timed at the shapes
      the run gave it, their bounds, both engines' decode/prefill/window
-     times, tokens/s and peak memory, and a profile of one decode step.
+     times, tokens/s and peak memory;
+  6. the full-width ``zamba2_1_2b`` engine (38 SSM layers, the shared
+     attention block's 7 applications over the tiered KV, random bf16
+     weights from a seed) serves 3 requests on the default async + prefetch
+     path with its host tiers on ``cxl_hw``: HOST8 reads launch
+     ``cxl_decode_pages`` (a cohort is driven to HOST8 by hand if the
+     policy leaves it empty: counted, but timed apart from the run's wall
+     time and tokens/s), ``cxl_encode_pages`` encodes each page-out's
+     layer-0 K/V pages (the first prefill's held byte-equal to its plain
+     version and to ``quant_pages(., 8)``), launch counts equal the cache's
+     calls, one kernel-branch step agrees with the plain branch, and phase
+     5's timings are taken again at this run's shapes (hd=64);
+  7. a profile of one decode step of each engine, last: once the profiler
+     has run, every later launch costs more host time.
 Media busy seconds in the engine are modeled time from the catalog's
 parameters, not measurements of this card; they are not printed.
-The last line is the JSON result ``{"ok": true, "device": {...}}``.
+The ``kernels`` line lists all seven kernels (launches from the main-path
+run that drives each). The last line is the JSON result
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,11 +69,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs import TierScapeRunConfig, get  # noqa: E402
 from repro_torch.core.manager import ManagerConfig  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.media.faults import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.transformer import _attn_layer_count  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import TieredEngine  # noqa: E402
@@ -66,12 +85,18 @@ F32_OPS_PER_S = 67e12
 ATTN_TOL = 2e-4
 SEED = 0
 DEV = "cuda"
-T, R, PAGE_LAYERS = 16, 32, 40
+T, R = 16, 32
 # The analytical policy's TCO weight on the default path: low enough that
 # pages reach the host tiers (so sentinels, swap-ins and prefetch run).
 ASYNC_ALPHA = 0.1
 PER_POOL_STEPS = 4  # decode steps driven under ops.use_fused(False)
 MODES_LAYERS = 4  # depth of the phase-3b executor comparison
+NEW_TOKENS = 48
+# Prompt lengths per arch: the hybrid prefill scans the prompt one recurrent
+# step per token (host-bound in eager PyTorch), so its prompts are shorter.
+PROMPTS = {"qwen1_5_4b": (400, 601), "zamba2_1_2b": (200, 301)}
+HEAD_START_CYCLES = 2_000_000  # ~1 ms of SM clock: the spin before each timed call
+HOST8_FORCED_PAGES = 32  # pages driven to HOST8 if the policy leaves it empty
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
@@ -82,6 +107,8 @@ REPLACES = {
                       "src/repro/kernels/dequant_page.py:35"),
     "paged_quant_attention": ("src/repro_torch/csrc/paged_quant_attention.cu",
                               "src/repro/kernels/paged_attention.py:183"),
+    "cxl_encode_pages": ("src/repro_torch/csrc/cxl_line.cu", "src/repro/kernels/cxl_line.py:43"),
+    "cxl_decode_pages": ("src/repro_torch/csrc/cxl_line.cu", "src/repro/kernels/cxl_line.py:70"),
 }
 
 
@@ -95,7 +122,11 @@ def fail(msg: str) -> None:
 
 def time_ms(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     """Median device time of ``fn`` (CUDA events around each call, the L2
-    flushed by a 128 MB write between calls, after 3 warm-up calls)."""
+    flushed by a 128 MB write between calls, after 3 warm-up calls). The
+    stream is held back by a spin of ~1 ms (``torch.cuda._sleep``) before
+    the first event, so the host has queued the call before the device
+    reaches it: a wrapper's host overhead is not counted unless it outlasts
+    the spin (as a plain version's chain of small operations can)."""
     scratch = torch.empty(flush_bytes, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         fn()
@@ -103,6 +134,7 @@ def time_ms(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     for _ in range(iters):
         scratch.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HEAD_START_CYCLES)
         a.record()
         fn()
         b.record()
@@ -249,21 +281,54 @@ def pool_operands(g, b, h, kv, hd, mp, bits, n_valid):
     return (q, kp, ks, vp, vs, table, n, bits)
 
 
+def check_cxl_encode(pages: torch.Tensor) -> float:
+    """cxl_encode_pages vs its plain version and vs quant_pages(., 8): the
+    payload, scales and line widths byte-equal."""
+    pk, sk, bk = cxl_line.cxl_encode_pages(pages)
+    pp, sp, bp = ref.cxl_encode_kv_page(pages)
+    qp, qs = quant_page.quant_pages(pages, 8)
+    torch.cuda.synchronize()
+    for what, a, b in (("payload", pk, pp), ("scales", sk, sp), ("line widths", bk, bp),
+                       ("payload vs quant_pages", pk, qp), ("scales vs quant_pages", sk, qs)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"cxl_encode_pages {tuple(pages.shape)}: {what} differ in "
+                 f"{int((a != b).sum())} elements")
+    return _dequant_err(pk, sk, pp, sp, 8)
+
+
+def check_cxl_decode(pay, sc) -> float:
+    got = cxl_line.cxl_decode_pages(pay, sc)
+    want = ref.cxl_decode_kv_page(pay, sc)
+    deq = dequant_page.dequant_pages(pay, sc, 8, torch.float32)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or not torch.equal(got, want) or not torch.equal(got, deq):
+        fail(f"cxl_decode_pages: differs from the plain version in {int((got != want).sum())} "
+             f"and from dequant_pages in {int((got != deq).sum())} elements")
+    return float((got - want).abs().max())
+
+
 def phase_compare(cfg) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED)
     kv, hd, h = cfg.n_kv_heads, cfg.head_dim_(), cfg.n_heads
+    la = _attn_layer_count(cfg)
     errs = {}
-    # Page-out of a 512-token prompt: K and V of 40 layers x 31 pages.
-    pages = torch.randn((2 * PAGE_LAYERS * 31, T, kv, hd), generator=g, device=DEV)
+    # Page-out of a 512-token prompt: K and V of every attention layer x 31
+    # pages; the expander's encode of the same pages.
+    pages = torch.randn((2 * la * 31, T, kv, hd), generator=g, device=DEV)
     errs["quant_pages"] = max(check_quant(pages, 8), check_quant(pages, 4))
-    # A migration cohort: K and V of 40 layers x 8 pages, both directions;
-    # the same cohort's host sentinels (f32) and per-page fetches (bf16).
+    errs["cxl_encode_pages"] = max(check_cxl_encode(pages),
+                                   check_cxl_encode(pages.to(torch.bfloat16)))
+    # A migration cohort: K and V of every attention layer x 8 pages, both
+    # directions; the same cohort's host sentinels (f32) and per-page
+    # fetches (bf16), and its reads from the expander.
     e = d = 0.0
     for src, dst in ((8, 4), (4, 8)):
-        pay, sc = ref.quant_kv_page(pages[: 2 * PAGE_LAYERS * 8], src)
+        pay, sc = ref.quant_kv_page(pages[: 2 * la * 8], src)
         e = max(e, check_transcode(pay, sc, src, dst))
         for out_dtype in (torch.float32, torch.bfloat16):
             d = max(d, check_dequant(pay, sc, src, out_dtype))
+        if src == 8:
+            errs["cxl_decode_pages"] = check_cxl_decode(pay, sc)
     errs["transcode_pages"] = e
     errs["dequant_pages"] = d
     del pages
@@ -276,7 +341,8 @@ def phase_compare(cfg) -> dict:
         check_paged(pool_operands(g, 2, h, kv, hd, mp, 4, [60, 25])),
         check_paged(pool_operands(g, 2, h, kv, hd, mp, 8, [0, 0])),
     )
-    log(f"phase 2 ok: kernels match their plain versions, max abs err {errs}")
+    log(f"phase 2 ok ({cfg.name}, page [., {T}, {kv}, {hd}], H={h}): kernels match their "
+        f"plain versions, max abs err {errs}")
     return errs
 
 
@@ -301,13 +367,14 @@ class Spy:
         return self.fn(x, *args)
 
 
-SPIED = ("quant_pages", "transcode_pages", "dequant_pages")
+SPIED = ("quant_pages", "transcode_pages", "dequant_pages", "cxl_decode_pages")
 
 
 def install_spies() -> dict:
     spies = {"quant_pages": Spy(ops.quant_pages),
              "transcode_pages": Spy(ops.transcode_pages, lambda a: a[1] != a[2]),
-             "dequant_pages": Spy(ops.dequant_pages)}
+             "dequant_pages": Spy(ops.dequant_pages),
+             "cxl_decode_pages": Spy(ops.cxl_decode_pages)}
     for name, spy in spies.items():
         setattr(ops, name, spy)
     return spies
@@ -366,15 +433,15 @@ def _compare_steps(lk, lp, hk, hp, what: str) -> dict:
 
 
 def step_compare(eng: TieredEngine) -> dict:
-    """One decode step on the engine's live state, kernel branch vs plain
-    branch."""
+    """One decode step on the engine's live state (the hybrid's SSM side
+    state included), kernel branch vs plain branch."""
     tokens, st = step_tokens(eng), eng.cache.state
     k_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
     p_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=False, device=DEV)
-    lk, _, _, hk = k_step(eng.params, tokens, st, None)
-    lp, _, _, hp = p_step(eng.params, tokens, st, None)
+    lk, _, _, hk = k_step(eng.params, tokens, st, eng.ssm_state)
+    lp, _, _, hp = p_step(eng.params, tokens, st, eng.ssm_state)
     torch.cuda.synchronize()
-    return _compare_steps(lk, lp, hk, hp, "step kernel vs plain")
+    return _compare_steps(lk, lp, hk, hp, f"{eng.cfg.name} step kernel vs plain")
 
 
 def per_pool_compare(eng: TieredEngine) -> dict:
@@ -382,26 +449,26 @@ def per_pool_compare(eng: TieredEngine) -> dict:
     launch per pool and layer) vs the fused step on the same state."""
     tokens, st = step_tokens(eng), eng.cache.state
     step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
-    lf, _, _, hf = step(eng.params, tokens, st, None)
+    lf, _, _, hf = step(eng.params, tokens, st, eng.ssm_state)
     before = build.launch_counts()
     try:
         ops.use_fused(False)
-        lpp, _, _, hpp = step(eng.params, tokens, st, None)
+        lpp, _, _, hpp = step(eng.params, tokens, st, eng.ssm_state)
         torch.cuda.synchronize()
     finally:
         ops.use_fused(True)
     launched = {k: v - before[k] for k, v in build.launch_counts().items()}
     if launched["paged_quant_attention"] != 2 * eng.la or launched["fused_tiered_attention"]:
         fail(f"per-pool step launched {launched}, expected 2 x {eng.la} paged_quant_attention")
-    out = _compare_steps(lpp, lf, hpp, hf, "per-pool step vs fused step")
+    out = _compare_steps(lpp, lf, hpp, hf, f"{eng.cfg.name} per-pool step vs fused step")
     out["launches"] = launched["paged_quant_attention"]
     return out
 
 
 def submit_requests(eng: TieredEngine, cfg) -> list:
     rng = np.random.default_rng(SEED)
-    return [eng.submit(rng.integers(1, cfg.vocab_size, int(n)), max_new_tokens=48)
-            for n in rng.integers(400, 601, 3)]
+    return [eng.submit(rng.integers(1, cfg.vocab_size, int(n)), max_new_tokens=NEW_TOKENS)
+            for n in rng.integers(*PROMPTS[cfg.name], 3)]
 
 
 def engine_metrics(stats, reqs, wall, peak, steps=None, decode_s=None) -> dict:
@@ -465,7 +532,8 @@ def phase_serial(cfg, model, params, alpha: float = 0.5, compare: bool = True):
     peak = torch.cuda.max_memory_allocated()
     remove_spies(spies)
 
-    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == 48 for r in reqs):
+    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == NEW_TOKENS
+                                       for r in reqs):
         fail(f"serial: not every request completed: {stats.completed}/3")
     if counts["fused_tiered_attention"] != cfg.n_layers * stats.steps:
         fail(f"serial: fused_tiered_attention launched {counts['fused_tiered_attention']} "
@@ -483,17 +551,72 @@ def phase_serial(cfg, model, params, alpha: float = 0.5, compare: bool = True):
     return metrics, counts, step
 
 
-def phase_async(cfg, model, params):
-    """The default path: async migration + prefetch. Counts are reset before
-    and read after each part of the run; the mid-run compares are not
-    counted, and the per-pool steps are a path of their own."""
+class PageEncoder:
+    """Wraps a cache's ``append_pages``: every page-out's layer-0 K and V
+    pages (bf16, the KV cache's own type: the engine hands them over upcast
+    to f32, so the cast back is exact) go through ``cxl_encode_pages`` as
+    the expander would store them, before the cache takes them. No engine
+    path calls the encode kernel; this is where the run gives it real
+    pages. Keeps the first page-out's pages (the first prefill's) for the
+    checks and timings, and the line widths of all of them."""
+
+    def __init__(self, cache):
+        self.fn = cache.append_pages
+        self.first = None
+        self.calls = 0
+        self.line_bits = []
+        cache.append_pages = self
+
+    def __call__(self, entries, k, v):
+        rows = torch.as_tensor([i for i, e in enumerate(entries) if e[0] == 0], device=k.device)
+        if rows.numel():
+            pages = torch.cat([k[rows], v[rows]]).to(torch.bfloat16)
+            self.calls += 1
+            _, _, bits = cxl_line.cxl_encode_pages(pages)
+            self.line_bits.append(bits.reshape(-1))
+            if self.first is None:
+                self.first = pages
+        return self.fn(entries, k, v)
+
+    def line_ratio(self) -> float:
+        return ref.cxl_page_line_ratio(torch.cat(self.line_bits))
+
+
+def drive_host8(eng: TieredEngine) -> int:
+    """The policy put no page on HOST8 so far: drain the pipeline and drive
+    one blocking cohort of device pages there (their sentinel centroids read
+    the expander's pages back through ``cxl_decode_pages``)."""
+    cache = eng.cache
+    cache.drain_migrations()
+    dev = np.where(np.isin(cache.physical, (kvc.WARM, kvc.COLD)) & cache._page_exists)[0]
+    # Spread over the layers, so every layer keeps device pages to attend.
+    rids = np.unique(dev[np.linspace(0, dev.size - 1, min(HOST8_FORCED_PAGES, dev.size))
+                         .astype(np.int64)]) if dev.size else dev
+    moved = cache.migrate_batch(rids, np.full(rids.size, kvc.HOST8, np.int64))
+    log(f"policy left HOST8 empty: drove migrate_batch on {rids.size} device pages to HOST8 "
+        f"on {cache._dev_names[kvc.HOST8]} ({moved} page moves)")
+    return moved
+
+
+def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3"):
+    """The default path: async migration + prefetch, the host tiers on
+    ``host_media_device`` (host DRAM if empty). Counts are reset before and
+    read after each part of the run; the mid-run compares are not counted,
+    and the per-pool steps are a path of their own. On ``cxl_hw`` the run
+    must read HOST8 pages through ``cxl_decode_pages`` (a cohort is driven
+    there if the policy leaves HOST8 empty), and every page-out's layer-0
+    K/V pages go through ``cxl_encode_pages`` (``PageEncoder``)."""
     ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
-                            async_migration=True, prefetch=True, faults=False)
-    log(f"phase 3 (async): alpha {ts.alpha}, async_migration {ts.async_migration}, "
+                            async_migration=True, prefetch=True, faults=False,
+                            host_media_device=host_media_device)
+    cxl = host_media_device == "cxl_hw"
+    what = f"{cfg.name} async" + (" on cxl_hw" if cxl else "")
+    log(f"phase {phase} ({what}): alpha {ts.alpha}, async_migration {ts.async_migration}, "
         f"prefetch {ts.prefetch}")
     torch.cuda.reset_peak_memory_stats()
     eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
                        recent_window=R, ts=ts, device=DEV)
+    encoder = PageEncoder(eng.cache) if cxl else None
     reqs = submit_requests(eng, cfg)
     spies = install_spies()
     reset_counts(spies)
@@ -501,6 +624,14 @@ def phase_async(cfg, model, params):
     eng.run(max_steps=40)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # The forced HOST8 cohort (if any) is counted with the run's launches but
+    # timed apart from its wall time: it is a blocking call made by hand.
+    forced, host8_ms = 0, None
+    if cxl and spies["cxl_decode_pages"].calls == 0:
+        t0 = time.perf_counter()
+        forced = drive_host8(eng)
+        torch.cuda.synchronize()
+        host8_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts(spies)
 
     compares = {"kernel_vs_plain": step_compare(eng), "per_pool_vs_fused": per_pool_compare(eng)}
@@ -530,8 +661,8 @@ def phase_async(cfg, model, params):
     pp_tokens = sum(len(r.out_tokens) for r in reqs) - tok0
     if (pp_counts["paged_quant_attention"] != 2 * eng.la * PER_POOL_STEPS
             or pp_counts["fused_tiered_attention"]):
-        fail(f"per-pool path launched {pp_counts}, expected 2 x {eng.la} x {PER_POOL_STEPS} "
-             "paged_quant_attention and no fused launch")
+        fail(f"{what}: per-pool path launched {pp_counts}, expected 2 x {eng.la} x "
+             f"{PER_POOL_STEPS} paged_quant_attention and no fused launch")
 
     reset_counts(spies)
     t0 = time.perf_counter()
@@ -544,27 +675,37 @@ def phase_async(cfg, model, params):
 
     main_steps = stats.steps - PER_POOL_STEPS
     ring = eng.cache.staging_ring
-    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == 48 for r in reqs):
-        fail(f"async: not every request completed: {stats.completed}/3")
-    if stats.overlapped_steps <= 0:
-        fail("async: no decode step overlapped a migration cohort")
+    if stats.completed != 3 or not all(r.done and len(r.out_tokens) == NEW_TOKENS
+                                       for r in reqs):
+        fail(f"{what}: not every request completed: {stats.completed}/3")
     # Every staged page met a boundary (hit or miss) or was invalidated
     # while held (a request finished mid-window and freed its pages).
     invalidated = eng.cache.pipeline.prefetch_invalidated
-    if stats.prefetch_staged <= 0 or (stats.prefetch_staged != stats.prefetch_hits
-                                      + stats.prefetch_misses + invalidated):
-        fail(f"async: prefetch staged {stats.prefetch_staged}, hits {stats.prefetch_hits}, "
+    if stats.prefetch_staged != stats.prefetch_hits + stats.prefetch_misses + invalidated:
+        fail(f"{what}: prefetch staged {stats.prefetch_staged}, hits {stats.prefetch_hits}, "
              f"misses {stats.prefetch_misses}, invalidated {invalidated} (alpha {ts.alpha})")
+    if stats.overlapped_steps <= 0 or stats.prefetch_staged <= 0:
+        fail(f"{what}: overlapped steps {stats.overlapped_steps}, prefetch staged "
+             f"{stats.prefetch_staged}: the async path or prefetch did not run")
     if ring.held_slots or ring.free_slots != ring.n_slots:
-        fail(f"async: {ring.held_slots} ring credits left held")
-    if counts["fused_tiered_attention"] != cfg.n_layers * main_steps:
-        fail(f"async: fused_tiered_attention launched {counts['fused_tiered_attention']} "
-             f"times, expected {cfg.n_layers} x {main_steps} decode steps")
-    if counts["transcode_pages"] < 1 or counts["dequant_pages"] < 1 or counts["quant_pages"] < 1:
-        fail(f"async: quant/transcode/dequant kernels not on the path: {counts}")
-    check_counts(counts, "async")
+        fail(f"{what}: {ring.held_slots} ring credits left held")
+    if counts["fused_tiered_attention"] != eng.la * main_steps:
+        fail(f"{what}: fused_tiered_attention launched {counts['fused_tiered_attention']} "
+             f"times, expected {eng.la} x {main_steps} decode steps")
+    if any(counts[n] < 1 for n in ("quant_pages", "transcode_pages", "dequant_pages")):
+        fail(f"{what}: page-out/migration/dequant kernels not on the path: {counts}")
+    if cxl:
+        counts["cxl_encode_pages_calls"] = encoder.calls
+        if counts["cxl_decode_pages"] < 1 or encoder.calls < 1:
+            fail(f"{what}: no HOST8 page was read through cxl_decode_pages or no page-out was "
+                 f"encoded: {counts}")
+        encoded = counts["cxl_encode_pages"] + pp_counts["cxl_encode_pages"]
+        if encoded != encoder.calls:
+            fail(f"{what}: cxl_encode_pages launched {encoded} times for {encoder.calls} "
+                 "page-outs")
+    check_counts(counts, what)
     if stats.attn_launches != counts["fused_tiered_attention"] + pp_counts["paged_quant_attention"]:
-        fail(f"async: billed attention launches {stats.attn_launches} != counted "
+        fail(f"{what}: billed attention launches {stats.attn_launches} != counted "
              f"{counts} + {pp_counts}")
     metrics = engine_metrics(stats, reqs, wall, peak, steps=main_steps,
                              decode_s=stats.decode_s - pp_decode)
@@ -574,9 +715,14 @@ def phase_async(cfg, model, params):
     metrics["prefetch_invalidated"] = invalidated
     metrics["per_pool"] = {"steps": PER_POOL_STEPS, "decode_ms_per_step":
                            pp_decode / PER_POOL_STEPS * 1e3, "wall_s": pp_wall}
-    log(f"phase 3 ok (async): {json.dumps(metrics)}; launches {counts}; "
+    if cxl:
+        metrics["host8_forced_pages"] = forced
+        metrics["host8_cohort_ms"] = host8_ms  # not in wall_s / tokens_per_s
+        metrics["cxl_hw_device_ratio"] = eng.cache.media_queues["cxl_hw"].device.ratio
+        metrics["page_out_line_ratio"] = encoder.line_ratio()
+    log(f"phase {phase} ok ({what}): {json.dumps(metrics)}; launches {counts}; "
         f"per-pool launches {pp_counts}")
-    return eng, counts, pp_counts, metrics, spies, state, compares
+    return eng, counts, pp_counts, metrics, spies, state, compares, encoder
 
 
 def force_migration(eng: TieredEngine) -> bool:
@@ -796,7 +942,19 @@ def layer_pools(state, layer: int) -> tuple:
     }
 
 
-def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
+def library_dequant(pay, sc, bits, out_dtype):
+    """One PyTorch call computing int8 payload x scale in f32 (type
+    promotion does the cast), where the function is that; else None."""
+    if bits != 8 or out_dtype != torch.float32:
+        return None
+    scales = sc[..., None]
+    return lambda: torch.mul(pay, scales)
+
+
+def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> list:
+    """Each kernel held to its plain version again and timed at the shapes
+    the run gave it (the cxl codec's two as well when ``encoder`` holds the
+    run's page-outs)."""
     rows = []
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     # quant_pages at the largest page-out batch of the run.
@@ -807,7 +965,7 @@ def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
     out_b = n if bits == 8 else n // 2
     qb = bound_ms(n * pages.element_size() + out_b + n // pages.shape[-1] * 4, 6 * n)
     rows.append(("quant_pages", time_ms(lambda: quant_page.quant_pages(pages, bits)),
-                 time_ms(lambda: ref.quant_kv_page(pages, bits)), qb,
+                 time_ms(lambda: ref.quant_kv_page(pages, bits)), qb, None,
                  f"{tuple(pages.shape)} {pages.dtype} -> int{bits}"))
     del pages
     # transcode_pages at the largest migration cohort of the run.
@@ -823,7 +981,7 @@ def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
     tb = bound_ms(in_b + out_b, 8 * elems)
     rows.append(("transcode_pages",
                  time_ms(lambda: transcode_page.transcode_pages(pay, sc, src, dst)),
-                 time_ms(lambda: ref.transcode_kv_page(pay, sc, src, dst)), tb,
+                 time_ms(lambda: ref.transcode_kv_page(pay, sc, src, dst)), tb, None,
                  f"{tuple(pay.shape)} int{src} -> int{dst}"))
     # dequant_pages at the largest batch the run gave it (f32 sentinels or
     # the per-page path's fetch).
@@ -833,15 +991,16 @@ def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
     errs["dequant_pages"] = max(errs["dequant_pages"], check_dequant(pay, sc, bits, out_dtype))
     elems = sc.numel() * hd
     db = bound_ms(pay.numel() + sc.numel() * 4 + elems * out_dtype.itemsize, elems)
+    lib = library_dequant(pay, sc, bits, out_dtype)
     rows.append(("dequant_pages",
                  time_ms(lambda: dequant_page.dequant_pages(pay, sc, bits, out_dtype)),
                  time_ms(lambda: dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)), db,
-                 f"{tuple(pay.shape)} int{bits} -> {out_dtype}"))
+                 lib and time_ms(lib), f"{tuple(pay.shape)} int{bits} -> {out_dtype}"))
     # fused_tiered_attention on layer 0 of the live mid-run state.
+    cfg = eng.cfg
     layer, pools = layer_pools(state, 0)
     host = {"summary": layer["host_summary"], "table": layer["host_table"],
             "n": layer["host_n"], "page_tokens": T}
-    cfg = eng.cfg
     q = torch.randn((eng.bs, cfg.n_heads, cfg.head_dim_()), generator=g,
                     device=DEV).to(torch.bfloat16)
     (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, slot, tier, t, _) = ops._unified_operands(
@@ -854,7 +1013,7 @@ def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
     ab = bound_ms(*attention_work(operands))
     rows.append(("fused_tiered_attention",
                  time_ms(lambda: pa.fused_tiered_attention(*operands)),
-                 time_ms(lambda: pa.fused_tiered_attention_plain(*operands)), ab,
+                 time_ms(lambda: pa.fused_tiered_attention_plain(*operands)), ab, None,
                  f"B={eng.bs} MS={slot.shape[1]} valid rows int8/int4/host="
                  f"{int((tier == 0).sum())}/{int((tier == 1).sum())}/{int((tier == 2).sum())}"))
     # paged_quant_attention: one layer's two per-pool launches (warm int8 +
@@ -869,23 +1028,45 @@ def phase_times(eng, counts, pp_counts, spies, state, errs) -> list:
            for name, a in zip(pools, pool_args)}
     rows.append(("paged_quant_attention",
                  time_ms(lambda: [pa.paged_quant_attention(*a) for a in pool_args]),
-                 time_ms(lambda: [ref.paged_quant_attention(*a) for a in pool_args]), pb,
+                 time_ms(lambda: [ref.paged_quant_attention(*a) for a in pool_args]), pb, None,
                  f"layer 0, warm int8 + cold int4 launches, B={eng.bs} MP="
                  f"{pool_args[0][5].shape[1]} valid pages warm/cold="
                  f"{int(layer['warm_n'].sum())}/{int(layer['cold_n'].sum())}; alone: "
                  + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())))
     launches = dict(counts, paged_quant_attention=pp_counts["paged_quant_attention"])
+    if encoder is not None:
+        # cxl_encode_pages on the first prefill's real layer-0 K/V pages.
+        pages = encoder.first
+        errs["cxl_encode_pages"] = max(errs["cxl_encode_pages"], check_cxl_encode(pages))
+        n = pages.numel()
+        eb = bound_ms(n * pages.element_size() + n + n // pages.shape[-1] * 4
+                      + n // ref.CXL_LINE_ELEMS * 4, 7 * n)
+        rows.append(("cxl_encode_pages", time_ms(lambda: cxl_line.cxl_encode_pages(pages)),
+                     time_ms(lambda: ref.cxl_encode_kv_page(pages)), eb, None,
+                     f"{tuple(pages.shape)} {pages.dtype}, the first prefill's layer-0 K+V"))
+        launches["cxl_encode_pages"] += pp_counts["cxl_encode_pages"]
+        # cxl_decode_pages at the largest HOST8 read of the run.
+        _, shape, _, _ = spies["cxl_decode_pages"].largest
+        pay, sc = ref.quant_kv_page(torch.randn(shape, generator=g, device=DEV), 8)
+        errs["cxl_decode_pages"] = max(errs["cxl_decode_pages"], check_cxl_decode(pay, sc))
+        n = pay.numel()
+        lib = library_dequant(pay, sc, 8, torch.float32)
+        rows.append(("cxl_decode_pages", time_ms(lambda: cxl_line.cxl_decode_pages(pay, sc)),
+                     time_ms(lambda: ref.cxl_decode_kv_page(pay, sc)),
+                     bound_ms(n + sc.numel() * 4 + n * 4, n), time_ms(lib),
+                     f"{tuple(pay.shape)} int8 -> f32"))
+        launches["cxl_decode_pages"] += pp_counts["cxl_decode_pages"]
     out = []
-    for name, ms, plain_ms, (b_ms, b_by), shape in rows:
+    for name, ms, plain_ms, (b_ms, b_by), lib_ms, shape in rows:
         src_path, replaces = REPLACES[name]
         out.append({
             "name": name, "route": "cuda", "source": src_path, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": shape,
         })
-        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}) "
-            f"at {shape}; launches {launches[name]}")
+        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+            f"library {lib_ms}) at {shape}; launches {launches[name]}")
     return out
 
 
@@ -897,13 +1078,13 @@ def phase_profile(eng, state) -> dict:
 
     step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
     tokens = torch.ones((eng.bs, 1), dtype=torch.int64, device=DEV)
-    step(eng.params, tokens, state, None)
+    step(eng.params, tokens, state, eng.ssm_state)
     torch.cuda.synchronize()
     n = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(eng.params, tokens, state, None)
+            step(eng.params, tokens, state, eng.ssm_state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -917,8 +1098,23 @@ def phase_profile(eng, state) -> dict:
         "device_busy_share": device_ms / wall_ms,
         "top_device_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top},
     }
-    log(f"phase 5 profile: {json.dumps(out)}")
+    log(f"phase 7 profile ({eng.cfg.name}): {json.dumps(out)}")
     return out
+
+
+def init_params(cfg):
+    model = Model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    log(f"init {cfg.name}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()  # free an engine's class buffers before the next
 
 
 def main() -> int:
@@ -929,32 +1125,56 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    cfg = get("qwen1_5_4b")
+    cfg, zcfg = get("qwen1_5_4b"), get("zamba2_1_2b")
     smi = phase_build()
     errs = phase_compare(cfg)
-    model = Model(cfg, device=DEV)
-    t0 = time.perf_counter()
-    params = model.init(SEED)
-    torch.cuda.synchronize()
-    log(f"init {cfg.name}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params, "
-        f"{time.perf_counter() - t0:.1f} s")
+    zerrs = phase_compare(zcfg)
+    for name in ("cxl_encode_pages", "cxl_decode_pages"):
+        zerrs[name] = max(zerrs[name], errs[name])
+
+    # qwen1_5_4b: the dense path, serial and async (phases 3-5).
+    model, params = init_params(cfg)
     serial_metrics, serial_counts, serial_step = phase_serial(cfg, model, params)
-    gc.collect()
-    torch.cuda.empty_cache()  # free each engine's class buffers before the next
+    free_device()
     same_alpha, _, _ = phase_serial(cfg, model, params, alpha=ASYNC_ALPHA, compare=False)
-    gc.collect()
-    torch.cuda.empty_cache()
-    eng, counts, pp_counts, async_metrics, spies, state, compares = phase_async(
+    free_device()
+    eng, counts, pp_counts, async_metrics, spies, state, compares, _ = phase_async(
         cfg, model, params)
     modes = phase_modes(cfg)
     kernels = phase_times(eng, counts, pp_counts, spies, state, errs)
+    free_device()
+
+    # zamba2_1_2b: the hybrid path with its host tiers on cxl_hw (phase 6).
+    # The qwen engine stays resident for the profiles, which come last (the
+    # profiler's tracing is not to touch any timed run), so the zamba2 run's
+    # peak memory is counted above what is allocated before its weights.
+    held = torch.cuda.memory_allocated()
+    zmodel, zparams = init_params(zcfg)
+    zeng, zcounts, zpp_counts, zmetrics, zspies, zstate, zcompares, encoder = phase_async(
+        zcfg, zmodel, zparams, host_media_device="cxl_hw", phase="6")
+    zmetrics["peak_memory_bytes"] -= held
+    zmetrics["peak_memory_note"] = "above the qwen1_5_4b engine left resident"
+    zrows = {k["name"]: k for k in phase_times(zeng, zcounts, zpp_counts, zspies, zstate,
+                                                zerrs, encoder)}
     prof = phase_profile(eng, state)
+    zprof = phase_profile(zeng, zstate)
+    # Kernels 1-5 carry their hd=64 (zamba2) numbers beside the hd=128
+    # (qwen) ones; 6-7 run only on the zamba2 path.
+    for k in kernels:
+        z = zrows.pop(k["name"])
+        k["at_hd64"] = {f: z[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "shape")}
+    kernels += list(zrows.values())
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
-                                            "serial_same_alpha": same_alpha},
+                                            "serial_same_alpha": same_alpha,
+                                            "zamba2_cxl_hw": zmetrics},
                     "launches": {"async": counts, "per_pool": pp_counts,
-                                 "serial": serial_counts},
-                    "step_compare": {"serial": serial_step, **compares},
+                                 "serial": serial_counts, "zamba2_cxl_hw": zcounts,
+                                 "zamba2_per_pool": zpp_counts},
+                    "step_compare": {"serial": serial_step, **compares,
+                                     **{f"zamba2_{k}": v for k, v in zcompares.items()}},
                     "modes": modes, "decode_step_profile": prof,
+                    "zamba2_decode_step_profile": zprof,
                     "smoke_wall_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

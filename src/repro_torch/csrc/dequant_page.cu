@@ -5,7 +5,8 @@
 // int4 nibbles unpacked first (int4.cuh: even index in the low nibble, two's
 // complement), written as f32 or bf16 (round to nearest even). One f32
 // multiply per element and no fast math, so both outputs equal the plain
-// version (kernels/ref.py dequant, then a cast) bit for bit.
+// version (kernels/ref.py dequant, then a cast) bit for bit. The int8 pair
+// step is shared with cxl_decode_pages (quant_row.cuh).
 //
 // Design: one thread per head-dim pair — a char2 of an int8 payload or one
 // byte of an int4 payload — storing two outputs (float2 or bf16x2); the
@@ -17,7 +18,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "int4.cuh"
+#include "quant_row.cuh"
 
 template <int BITS, bool BF16>
 __global__ void dequant_pages_kernel(const void* __restrict__ payload,
@@ -26,18 +27,16 @@ __global__ void dequant_pages_kernel(const void* __restrict__ payload,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= pairs) return;
   const float s = scales[i / npairs];
-  float q0, q1;
+  float v0, v1;
   if (BITS == 8) {
-    const char2 c = reinterpret_cast<const char2*>(payload)[i];
-    q0 = (float)c.x;
-    q1 = (float)c.y;
+    const float2 v = dequant_int8_pair(reinterpret_cast<const char2*>(payload)[i], s);
+    v0 = v.x;
+    v1 = v.y;
   } else {
     const uint8_t b = reinterpret_cast<const uint8_t*>(payload)[i];
-    q0 = int4_lo(b);
-    q1 = int4_hi(b);
+    v0 = __fmul_rn(int4_lo(b), s);
+    v1 = __fmul_rn(int4_hi(b), s);
   }
-  const float v0 = __fmul_rn(q0, s);
-  const float v1 = __fmul_rn(q1, s);
   if (BF16) {
     reinterpret_cast<__nv_bfloat162*>(out)[i] = __floats2bfloat162_rn(v0, v1);
   } else {

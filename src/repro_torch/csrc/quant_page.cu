@@ -3,30 +3,17 @@
 // Replaces the Pallas kernel repro/kernels/quant_page.py::quant_pages
 // (_quant_kernel). One warp per (page, token, kv-head) row of head_dim
 // values: absmax by warp shuffle, then per-element IEEE divide, rint and
-// clamp; int4 packs each lane's adjacent pair into one byte.
+// clamp (the row step shared with cxl_line.cu, quant_row.cuh); int4 packs
+// each lane's adjacent pair into one byte.
 //
 // Bound: bytes. Each row is read once (f32 or bf16) and its payload and one
 // f32 scale written once; the arithmetic is a handful of operations per
 // element. The design streams rows with coalesced pair loads and keeps the
 // row in registers between the absmax and the quantization, so nothing is
 // read twice.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "int4.cuh"
-
-template <typename T>
-__device__ __forceinline__ float2 load_pair(const T* p);
-
-template <>
-__device__ __forceinline__ float2 load_pair<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-template <>
-__device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+#include "quant_row.cuh"
 
 template <typename T, int BITS>
 __global__ void quant_rows_kernel(const T* __restrict__ x, void* __restrict__ payload,
@@ -35,34 +22,16 @@ __global__ void quant_rows_kernel(const T* __restrict__ x, void* __restrict__ pa
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int npairs = hd >> 1;
-  const T* xr = x + row * hd;
-  const float qmax = BITS == 8 ? 127.f : 7.f;
-
-  float2 v[MAX_PAIRS_PER_LANE];
-  float amax = 0.f;
+  float2 q[MAX_PAIRS_PER_LANE];
+  const float scale = quant_row<T>(x + row * hd, npairs, lane, BITS == 8 ? 127.f : 7.f, q);
+  if (BITS == 8) {
+    store_int8_row(reinterpret_cast<char2*>(payload) + row * npairs, npairs, lane, q);
+  } else {
 #pragma unroll
-  for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
-    const int i = lane + 32 * j;
-    if (i < npairs) {
-      v[j] = load_pair<T>(xr + 2 * i);
-      amax = fmaxf(amax, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
-    }
-  }
-  amax = warp_max(amax);
-  const float scale = quant_scale(amax, qmax);
-#pragma unroll
-  for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
-    const int i = lane + 32 * j;
-    if (i < npairs) {
-      const float q0 = quantize(v[j].x, scale, qmax);
-      const float q1 = quantize(v[j].y, scale, qmax);
-      if (BITS == 8) {
-        char2 c;
-        c.x = (signed char)q0;
-        c.y = (signed char)q1;
-        reinterpret_cast<char2*>(payload)[row * npairs + i] = c;
-      } else {
-        reinterpret_cast<uint8_t*>(payload)[row * npairs + i] = pack_int4(q0, q1);
+    for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
+      const int i = lane + 32 * j;
+      if (i < npairs) {
+        reinterpret_cast<uint8_t*>(payload)[row * npairs + i] = pack_int4(q[j].x, q[j].y);
       }
     }
   }

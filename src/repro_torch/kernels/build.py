@@ -1,7 +1,8 @@
 """Builds and loads the CUDA kernels, and counts their launches.
 
-Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
-into ``build/repro_torch/lib<name>-<digest>.so`` at the root of the checkout,
+Each ``csrc/<name>.cu`` (one library of one or more kernels) compiles on
+its own with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch/lib<name>-<digest>.so`` at the root of the checkout,
 exposing a plain C interface that the wrappers call through ``ctypes``. The
 digest covers the sources, the shared headers and the flags, so a stale
 library is never loaded. Building happens at first use (or all at once, in
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 KERNELS = ("quant_page", "transcode_page", "paged_attention", "dequant_page",
-           "paged_quant_attention")
+           "paged_quant_attention", "cxl_line")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_tiered_attention": 0,
     "dequant_pages": 0,
     "paged_quant_attention": 0,
+    "cxl_encode_pages": 0,
+    "cxl_decode_pages": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,74 @@
+"""Page codec of the cxl_hw expander tier: wrappers of the two CUDA kernels
+in ``csrc/cxl_line.cu``.
+
+``cxl_encode_pages`` replaces the Pallas kernel
+``repro/kernels/cxl_line.py::cxl_encode_pages``: the int8 quantization of
+``quant_pages(., 8)`` (payload and scales byte-equal to it) plus the stored
+width of each 64-codeword hardware line, 4 or 8 bits. ``cxl_decode_pages``
+replaces ``repro/kernels/cxl_line.py::cxl_decode_pages``: int8 times the row
+scale, in f32 (the controller decompresses inline). The cache reads HOST8
+pages that live on the ``cxl_hw`` expander through it. Both are bound by
+bytes (one pass over rows or head-dim pairs, coalesced). On a CPU tensor the
+plain versions (``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``)
+run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_P = ctypes.c_void_p
+MAX_HEAD_DIM = 256  # one warp per row, four pairs per lane
+
+
+def cxl_encode_pages(pages: torch.Tensor):
+    """pages [P, T, KV, hd] bf16/f32 (hd a multiple of 64) -> (payload int8
+    [P, T, KV, hd], scales f32 [P, T, KV], line_bits int32
+    [P, T, KV, hd // 64])."""
+    if pages.device.type == "cpu":
+        return ref.cxl_encode_kv_page(pages)
+    name = "cxl_encode_pages"
+    p, t, kv, hd = pages.shape
+    if hd % ref.CXL_LINE_ELEMS or hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of {ref.CXL_LINE_ELEMS} "
+                         f"and <= {MAX_HEAD_DIM}")
+    dev = pages.device
+    build.check_operand(name, "pages", pages, (torch.float32, torch.bfloat16), dev)
+    payload = torch.empty((p, t, kv, hd), dtype=torch.int8, device=dev)
+    scales = torch.empty((p, t, kv), dtype=torch.float32, device=dev)
+    line_bits = torch.empty((p, t, kv, hd // ref.CXL_LINE_ELEMS), dtype=torch.int32, device=dev)
+    fn = build.load("cxl_line").cxl_encode_pages_launch
+    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    err = fn(pages.data_ptr(), int(pages.dtype == torch.bfloat16), payload.data_ptr(),
+             scales.data_ptr(), line_bits.data_ptr(), p * t * kv, hd, build.stream_handle(dev))
+    build.check(err, name)
+    build.count_launch(name)
+    return payload, scales, line_bits
+
+
+def cxl_decode_pages(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(payload int8 [P, T, KV, hd], scales f32 [P, T, KV]) -> pages f32
+    [P, T, KV, hd]."""
+    if payload.device.type == "cpu":
+        return ref.cxl_decode_kv_page(payload, scales)
+    name = "cxl_decode_pages"
+    p, t, kv, hd = payload.shape
+    if hd % 2:
+        raise ValueError(f"{name}: head_dim {hd} must be even")
+    dev = payload.device
+    build.check_operand(name, "payload", payload, torch.int8, dev)
+    build.check_operand(name, "scales", scales, torch.float32, dev, (p, t, kv))
+    out = torch.empty((p, t, kv, hd), dtype=torch.float32, device=dev)
+    fn = build.load("cxl_line").cxl_decode_pages_launch
+    fn.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    err = fn(payload.data_ptr(), scales.data_ptr(), out.data_ptr(), p * t * kv, hd,
+             build.stream_handle(dev))
+    build.check(err, name)
+    build.count_launch(name)
+    return out

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.cxl_line import cxl_decode_pages, cxl_encode_pages  # noqa: F401
 from repro_torch.kernels.dequant_page import dequant_pages  # noqa: F401  (public dispatch name)
 from repro_torch.kernels.paged_attention import (
     TIER_HOST,

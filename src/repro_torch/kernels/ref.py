@@ -22,14 +22,10 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.core.codecs import CXL_LINE_ELEMS, cxl_line_bits
 from repro_torch.kernels.packing import QMAX, pack_int4, unpack_int4
 
 NEG_INF = -1e30
-
-# Inline CXL line compression (the cxl_hw media device): int8 codewords per
-# hardware line, and the largest |q| a line may hold to be stored 4-bit.
-CXL_LINE_ELEMS = 64
-CXL_NARROW_QMAX = 7
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -57,6 +53,41 @@ def dequant_kv_page(payload: torch.Tensor, scales: torch.Tensor, bits: int) -> t
     """Inverse of quant_kv_page (returns f32)."""
     q = payload.to(torch.float32) if bits == 8 else unpack_int4(payload)
     return q * scales[..., None]
+
+
+# -- cxl_hw: inline line-compressed far memory ------------------------------
+# Software quantizes a page to dense int8 (the int8 codec's layout); the
+# expander's controller narrows each 64-codeword hardware line to 4-bit
+# storage when every value fits int4 range. The engine always reads back the
+# dense int8 view: line_bits only changes stored/wire bytes, never values.
+
+
+def cxl_encode_kv_page(page: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """page [..., T, KV, hd] -> (payload int8, scales [..., T, KV],
+    line_bits [..., T, KV, hd // CXL_LINE_ELEMS] int32 in {4, 8})."""
+    payload, scales = quant_kv_page(page, 8)
+    return payload, scales, cxl_page_line_bits(payload)
+
+
+def cxl_page_line_bits(payload: torch.Tensor) -> torch.Tensor:
+    """Stored width of each hardware line of an int8 payload."""
+    hd = payload.shape[-1]
+    if hd % CXL_LINE_ELEMS:
+        raise ValueError(f"hd {hd} not a multiple of the {CXL_LINE_ELEMS}-codeword line")
+    return cxl_line_bits(payload).reshape(*payload.shape[:-1], hd // CXL_LINE_ELEMS)
+
+
+def cxl_decode_kv_page(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of cxl_encode_kv_page (controller decompression is inline and
+    value-exact, so decode is the plain int8 dequant, f32)."""
+    return dequant_kv_page(payload, scales, 8)
+
+
+def cxl_page_line_ratio(line_bits: torch.Tensor) -> float:
+    """Observed line-compression ratio over a batch of pages: nominal dense
+    payload bits / stored line bits. In [1, 2]."""
+    total = int(line_bits.to(torch.int64).sum())
+    return float(8 * line_bits.numel()) / float(max(total, 1))
 
 
 def transcode_kv_page(

@@ -134,6 +134,21 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def attend_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """Attention over the whole sequence. x: [B, S, D] -> (y [B, S, D], the
+    layer's K and V [B, S, KV, hd] for the cache)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    ke, ve = _maybe_expand_kv(q, k, v)
+    if q.shape[1] > CHUNKED_ATTN_THRESHOLD:
+        out = _sdpa_chunked(q, ke, ve, causal=cfg.causal)
+    else:
+        out = _sdpa(q, ke, ve, causal=cfg.causal)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if cfg.attn_out_bias:
+        y = y + p["bo"]
+    return y, k, v
+
+
 def attend_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
     """One-token decode against a dense KV cache, writing the new token's

@@ -66,3 +66,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU in f32, cast back (``jax.nn.gelu(...,
+    approximate=True)``)."""
+    return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)

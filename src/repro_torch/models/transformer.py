@@ -1,8 +1,10 @@
-"""Dense decoder LM, after ``repro.models.transformer`` (family "dense"):
+"""Decoder LMs, after ``repro.models.transformer``: the dense family and the
+hybrid family (Zamba2: a Mamba2 backbone plus one weight-shared attention +
+MLP block applied every ``hybrid_attn_every`` layers):
 
     model = Model(cfg, device="cuda")
     params = model.init(seed)                        # torch generator
-    state = model.init_cache(batch, max_len)         # dense decode state
+    state = model.init_cache(batch, max_len)         # decode state
     logits, state = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, tok, state)
 
@@ -20,16 +22,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, ssm
 
 
 @dataclasses.dataclass
 class DecodeState:
-    """Stacked per-layer dense decode state."""
+    """Stacked per-layer decode state. Unused fields hold size-0 tensors."""
 
     k_cache: torch.Tensor  # [L_attn, B, S_max, KV, hd]
     v_cache: torch.Tensor
     cache_len: int  # tokens already in the cache
+    conv_state: torch.Tensor  # [L_ssm, B, K-1, C_conv]
+    ssm_state: torch.Tensor  # [L_ssm, B, H, P, N] f32
 
 
 def _attn_layer_count(cfg: ModelConfig) -> int:
@@ -40,14 +44,42 @@ def _attn_layer_count(cfg: ModelConfig) -> int:
     return 0
 
 
+def _ssm_layer_count(cfg: ModelConfig) -> int:
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def ssm_groups(cfg: ModelConfig):
+    """The hybrid's SSM layers that follow each application of its shared
+    block: ``hybrid_attn_every`` at a time, the last group shorter."""
+    every = cfg.hybrid_attn_every
+    return [range(i, min(i + every, cfg.n_layers)) for i in range(0, cfg.n_layers, every)]
+
+
+def ssm_state_shapes(cfg: ModelConfig, batch: int):
+    """Shapes of the SSM side state: (conv [L_ssm, B, K-1, C_conv],
+    ssm [L_ssm, B, H, P, N])."""
+    s = cfg.ssm
+    ls = _ssm_layer_count(cfg)
+    cconv = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+    return ((ls, batch, s.conv_kernel - 1, cconv),
+            (ls, batch, s.n_heads(cfg.d_model), s.head_dim, s.d_state))
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       device="cpu") -> DecodeState:
     hd = cfg.head_dim_()
-    shape = (_attn_layer_count(cfg), batch, max_len, cfg.n_kv_heads, hd)
+    la = _attn_layer_count(cfg)
+    shape = (la, batch, max_len if la else 0, cfg.n_kv_heads, hd)
+    if cfg.ssm is not None:
+        conv_shape, ssm_shape = ssm_state_shapes(cfg, batch)
+    else:
+        conv_shape, ssm_shape = (0, batch, 0, 0), (0, batch, 0, 0, 0)
     return DecodeState(
         k_cache=torch.zeros(shape, dtype=dtype, device=device),
         v_cache=torch.zeros(shape, dtype=dtype, device=device),
         cache_len=0,
+        conv_state=torch.zeros(conv_shape, dtype=dtype, device=device),
+        ssm_state=torch.zeros(ssm_shape, dtype=torch.float32, device=device),
     )
 
 
@@ -59,12 +91,11 @@ def layer_params(tree, li: int):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense family with RMSNorm, SwiGLU and 1-D RoPE;
-    every other flavor raises instead of running something else."""
+    """The port serves the dense and hybrid families with RMSNorm and 1-D
+    RoPE; every other flavor raises instead of running something else."""
     unported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in ("dense", "hybrid"),
         "norm": cfg.norm != "rmsnorm",
-        "act": cfg.act != "swiglu",
         "qk_norm": cfg.qk_norm,
         "mrope": cfg.mrope,
         "frontend": cfg.frontend is not None,
@@ -73,12 +104,35 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port serves "
-            f"dense decoders with rmsnorm/swiglu/rope; see ROADMAP)"
+            f"dense and hybrid decoders with rmsnorm and rope; see ROADMAP)"
         )
 
 
+def transformer_block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
+    """Full-sequence pre-norm attention + MLP block (the hybrid's shared
+    block in the parallel forward)."""
+    h = layers.apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    x = x + attention.attend_prefill(p["attn"], cfg, h, positions)[0]
+    h = layers.apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + mlp.mlp(p["ffn"], cfg, h)
+
+
+def ssm_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = layers.apply_norm(cfg.norm, p["norm"], x, cfg.norm_eps)
+    return x + ssm.ssm_block(p["mixer"], cfg, h)
+
+
+def ssm_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv: torch.Tensor,
+                     sst: torch.Tensor):
+    """One SSM layer of a decode step: (x', conv', ssm') as new tensors."""
+    h = layers.apply_norm(cfg.norm, p["norm"], x, cfg.norm_eps)
+    y, conv, sst = ssm.ssm_decode_step(p["mixer"], cfg, h, conv, sst)
+    return x + y, conv, sst
+
+
 class Model:
-    """Dense decoder (pure functions over a parameter dict + config)."""
+    """Dense or hybrid decoder (pure functions over a parameter dict +
+    config)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         check_supported(cfg)
@@ -91,21 +145,32 @@ class Model:
         dev = self.device
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
-        lead = (cfg.n_layers,)
-        return {
-            "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, dev),
-            "blocks": {
+
+        def block(lead):
+            return {
                 "norm1": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
                 "attn": attention.init_attn_params(gen, cfg, lead, dtype, dev),
                 "norm2": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
                 "ffn": mlp.init_mlp_params(gen, cfg, lead, dtype=dtype, device=dev),
-            },
-            "final_norm": layers.make_norm_params(cfg.norm, cfg.d_model, dev),
-            **({} if cfg.tie_embeddings else {
-                "lm_head": layers.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dtype,
-                                             device=dev),
-            }),
+            }
+
+        lead = (cfg.n_layers,)
+        params: Dict[str, Any] = {
+            "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, dev),
         }
+        if cfg.family == "hybrid":
+            params["blocks"] = {
+                "norm": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
+                "mixer": ssm.init_ssm_params(gen, cfg, lead, dtype, dev),
+            }
+            params["shared"] = block(())
+        else:
+            params["blocks"] = block(lead)
+        params["final_norm"] = layers.make_norm_params(cfg.norm, cfg.d_model, dev)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                                  dtype=dtype, device=dev)
+        return params
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -115,11 +180,44 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, dtype=torch.bfloat16) -> DecodeState:
         return init_decode_state(self.cfg, batch_size, max_len, dtype, self.device)
 
+    # ------------------------------------------------------------- forward
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Full-sequence forward. Returns logits [B, S, V]."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = params["embed"][tokens]
+        bsz, seq = tokens.shape
+        positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
+        if cfg.family == "hybrid":
+            x = self._hybrid_forward(params, x, positions)
+        else:
+            for li in range(cfg.n_layers):
+                x = transformer_block(layer_params(params["blocks"], li), cfg, x, positions)
+        x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+        return self._head(params, x)
+
+    def _hybrid_forward(self, params, x, positions) -> torch.Tensor:
+        """Zamba2: Mamba2 backbone + one weight-shared transformer block
+        applied every ``hybrid_attn_every`` layers."""
+        cfg = self.cfg
+        for group in ssm_groups(cfg):
+            x = transformer_block(params["shared"], cfg, x, positions)
+            for li in group:
+                x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
+        return x
+
+    # -------------------------------------------------------------- decode
     def prefill(self, params, batch: Dict[str, torch.Tensor], state: DecodeState
                 ) -> Tuple[torch.Tensor, DecodeState]:
         """Run the full prompt, filling ``state`` (in place) with every
-        layer's K/V. Returns last-token logits [B, 1, V]."""
+        layer's K/V (and, for the hybrid, the SSM states). Returns last-token
+        logits [B, 1, V]."""
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            # Recurrent state by scanning the tokens (the reference's simple
+            # path); the logits come from the parallel forward.
+            state = self._prefill_recurrent(params, batch, state)
+            return self.forward(params, batch)[:, -1:], state
         tokens = batch["tokens"]
         x = params["embed"][tokens]
         bsz, seq = tokens.shape
@@ -127,15 +225,7 @@ class Model:
         for li in range(cfg.n_layers):
             blk = layer_params(params["blocks"], li)
             hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
-            q, k, v = attention._project_qkv(blk["attn"], cfg, hn, positions)
-            ke, ve = attention._maybe_expand_kv(q, k, v)
-            if q.shape[1] > attention.CHUNKED_ATTN_THRESHOLD:
-                out = attention._sdpa_chunked(q, ke, ve, causal=cfg.causal)
-            else:
-                out = attention._sdpa(q, ke, ve, causal=cfg.causal)
-            y = torch.einsum("bshk,hkd->bsd", out, blk["attn"]["wo"])
-            if cfg.attn_out_bias:
-                y = y + blk["attn"]["bo"]
+            y, k, v = attention.attend_prefill(blk["attn"], cfg, hn, positions)
             x = x + y
             hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
             x = x + mlp.mlp(blk["ffn"], cfg, hn)
@@ -145,20 +235,51 @@ class Model:
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         return self._head(params, x[:, -1:]), state
 
+    def _prefill_recurrent(self, params, batch, state: DecodeState) -> DecodeState:
+        """One decode step per prompt token (K/V caches and SSM states)."""
+        tokens = batch["tokens"]
+        for i in range(tokens.shape[1]):
+            _, state = self.decode_step(params, tokens[:, i: i + 1], state)
+        return state
+
     def decode_step(self, params, token: torch.Tensor, state: DecodeState
                     ) -> Tuple[torch.Tensor, DecodeState]:
-        """One token [B, 1] against the dense cache (updated in place)."""
+        """One token [B, 1] against the dense cache (K/V updated in place;
+        the hybrid's SSM states replaced by new tensors)."""
         cfg = self.cfg
         x = params["embed"][token]
         pos = state.cache_len
-        for li in range(cfg.n_layers):
-            blk = layer_params(params["blocks"], li)
-            hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
-            x = x + attention.attend_decode(
-                blk["attn"], cfg, hn, state.k_cache[li], state.v_cache[li], pos
-            )
-            hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-            x = x + mlp.mlp(blk["ffn"], cfg, hn)
+        if cfg.family == "hybrid":
+            x = self._hybrid_decode(params, x, state)
+        else:
+            for li in range(cfg.n_layers):
+                blk = layer_params(params["blocks"], li)
+                hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
+                x = x + attention.attend_decode(
+                    blk["attn"], cfg, hn, state.k_cache[li], state.v_cache[li], pos
+                )
+                hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
+                x = x + mlp.mlp(blk["ffn"], cfg, hn)
         state.cache_len = pos + 1
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         return self._head(params, x), state
+
+    def _hybrid_decode(self, params, x, state: DecodeState) -> torch.Tensor:
+        cfg = self.cfg
+        pos = state.cache_len
+        blk = params["shared"]
+        convs, ssts = [], []
+        for g, group in enumerate(ssm_groups(cfg)):
+            hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
+            x = x + attention.attend_decode(blk["attn"], cfg, hn, state.k_cache[g],
+                                            state.v_cache[g], pos)
+            hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
+            x = x + mlp.mlp(blk["ffn"], cfg, hn)
+            for li in group:
+                x, conv, sst = ssm_layer_decode(layer_params(params["blocks"], li), cfg, x,
+                                                state.conv_state[li], state.ssm_state[li])
+                convs.append(conv)
+                ssts.append(sst)
+        state.conv_state = torch.stack(convs)
+        state.ssm_state = torch.stack(ssts)
+        return x

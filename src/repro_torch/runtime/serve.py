@@ -1,5 +1,5 @@
-"""Tiered decode step, after ``repro.runtime.serve`` (dense family, one
-device).
+"""Tiered decode step, after ``repro.runtime.serve`` (dense and hybrid
+families, one device).
 
 ``make_tiered_decode_step`` is the paper's technique on the decode path: the
 KV cache's warm/cold pages live in two device-resident quantized pools (host
@@ -8,7 +8,9 @@ attention runs as ONE fused pass over all pools + host sentinels + the dense
 recent window per layer — the CUDA kernel with ``use_kernels=True``, the
 plain oracle (``kernels.ref.fused_tiered_attention``) otherwise. Per-page
 softmax mass, including the host pages' would-have-touched mass, comes back
-as telemetry for the TierScape manager.
+as telemetry for the TierScape manager. For the hybrid family the tiered KV
+serves the shared attention block's applications, and the SSM groups between
+them carry a (conv, ssm) side state through the step.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.transformer import Model, layer_params
+from repro_torch.models.transformer import (Model, layer_params, ssm_groups,
+                                            ssm_layer_decode)
 
 
 @dataclasses.dataclass
@@ -147,19 +150,22 @@ def make_tiered_decode_step(
     use_kernels: bool = False,
     device="cuda",
 ):
-    """Decode step over tiered KV pools for the dense family.
+    """Decode step over tiered KV pools for the dense and hybrid families.
 
     Returns step_fn(params, token [B, 1], tkv, extra_state) -> (logits
-    [B, 1, V], tkv', extra_state, telemetry) where telemetry maps "warm",
-    "cold" and "host" to the per-layer normalized page hotness [L, B, MP].
-    ``extra_state`` (the reference's SSM side-state) passes through.
-    ``use_kernels`` runs the fused CUDA kernel (one launch per layer); the
-    plain branch runs the oracle the kernel is held to."""
+    [B, 1, V], tkv', extra_state', telemetry) where telemetry maps "warm",
+    "cold" and "host" to the per-attention-layer normalized page hotness
+    [L, B, MP]. For the hybrid, ``extra_state`` is the SSM side state
+    (conv [L_ssm, B, K-1, C], ssm [L_ssm, B, H, P, N]) and comes back as new
+    tensors (the input is not modified); for the dense family it passes
+    through. ``use_kernels`` runs the fused CUDA kernel (one launch per
+    attention layer); the plain branch runs the oracle the kernel is held
+    to."""
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
     cfg = model.cfg
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(f"tiered decode for family {cfg.family!r} is not ported yet")
     wb = int(ts_cfg.warm_bits)
     cb = int(ts_cfg.cold_bits)
@@ -223,28 +229,46 @@ def make_tiered_decode_step(
             y = y + blk["attn"]["bo"]
         return x + y, recent_k, recent_v, hot
 
+    def attn_layer(blk, x, tkv, g, telemetry, new_recent):
+        """One attention layer (its MLP included) over application ``g`` of
+        the tiered state."""
+        layer_tkv = {f: getattr(tkv, f)[g] for f in LAYER_FIELDS}
+        x, rk, rv, hot = attend_tiered(blk, x, layer_tkv, tkv.total_len, tkv.recent_len)
+        hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
+        x = x + mlp_mod.mlp(blk["ffn"], cfg, hn)
+        new_recent[0].append(rk)
+        new_recent[1].append(rv)
+        for k in telemetry:
+            telemetry[k].append(hot[k])
+        return x
+
     def step(params, token, tkv: TieredKVState, extra_state=None):
         x = params["embed"][token]
-        recent_len = tkv.recent_len
-        total_len = tkv.total_len
         telemetry = {"warm": [], "cold": [], "host": []}
-        new_recent_k, new_recent_v = [], []
-        for li in range(tkv.recent_k.shape[0]):
-            blk = layer_params(params["blocks"], li)
-            layer_tkv = {f: getattr(tkv, f)[li] for f in LAYER_FIELDS}
-            x, rk, rv, hot = attend_tiered(blk, x, layer_tkv, total_len, recent_len)
-            hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-            x = x + mlp_mod.mlp(blk["ffn"], cfg, hn)
-            new_recent_k.append(rk)
-            new_recent_v.append(rv)
-            for k in telemetry:
-                telemetry[k].append(hot[k])
+        new_recent = ([], [])
+        if cfg.family == "hybrid":
+            # The shared block's applications over the tiered KV, each
+            # followed by its group of SSM layers.
+            conv_states, ssm_states = extra_state
+            new_conv, new_ssm = [], []
+            for g, group in enumerate(ssm_groups(cfg)):
+                x = attn_layer(params["shared"], x, tkv, g, telemetry, new_recent)
+                for li in group:
+                    x, cv, ss = ssm_layer_decode(layer_params(params["blocks"], li), cfg, x,
+                                                 conv_states[li], ssm_states[li])
+                    new_conv.append(cv)
+                    new_ssm.append(ss)
+            extra_state = (torch.stack(new_conv), torch.stack(new_ssm))
+        else:
+            for li in range(tkv.recent_k.shape[0]):
+                x = attn_layer(layer_params(params["blocks"], li), x, tkv, li, telemetry,
+                                 new_recent)
         tkv = dataclasses.replace(
             tkv,
-            recent_k=torch.stack(new_recent_k),
-            recent_v=torch.stack(new_recent_v),
-            recent_len=recent_len + 1,
-            total_len=total_len + 1,
+            recent_k=torch.stack(new_recent[0]),
+            recent_v=torch.stack(new_recent[1]),
+            recent_len=tkv.recent_len + 1,
+            total_len=tkv.total_len + 1,
         )
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         logits = model._head(params, x)

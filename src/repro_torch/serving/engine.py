@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over slots + tiered KV cache, after
-``repro.serving.engine`` (dense family).
+``repro.serving.engine`` (dense and hybrid families).
 
 Request lifecycle: queue -> slot assignment -> prefill (dense, then pages
 compress into the warm tier) -> decode steps (tiered attention, telemetry,
@@ -7,11 +7,15 @@ one migration-pipeline tick or speculative prefetch tick) -> window boundary
 (TierScape placement; the plan's cohorts go to the async media pipeline by
 default, or run to completion with ``async_migration=False``) -> completion
 frees pages. ``faults``/``fault_plan`` arm deterministic media fault
-injection and ``host_media_device`` rebinds the host tiers. On the GPU every
-decode step runs the fused CUDA attention kernel in every layer (or, under
-``ops.use_fused(False)``, one per-pool kernel per pool); on the CPU it runs
-the plain oracle, as the JAX engine does. Preemption (park/resume) comes
-with the frontend.
+injection and ``host_media_device`` rebinds the host tiers (on ``cxl_hw``
+the HOST8 pages read back through the ``cxl_decode_pages`` kernel). On the
+GPU every decode step runs the fused CUDA attention kernel in every
+attention layer (or, under ``ops.use_fused(False)``, one per-pool kernel per
+pool); on the CPU it runs the plain oracle, as the JAX engine does. A hybrid
+arch (Zamba2) also carries each slot's SSM side state (conv, ssm) through
+the decode steps; its prefill reuses the SSM states ``Model.prefill``
+computes (the reference engine scans the prompt a second time for them, and
+gets the same values). Preemption (park/resume) comes with the frontend.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from repro_torch.configs.base import TierScapeRunConfig
 from repro_torch.core.manager import ManagerConfig
 from repro_torch.device import resolve_device
 from repro_torch.media.faults import default_plan
-from repro_torch.models.transformer import Model, _attn_layer_count
+from repro_torch.models.transformer import Model, _attn_layer_count, ssm_state_shapes
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.kv_cache import TieredKVCache
 
@@ -77,15 +81,15 @@ class EngineStats:
 
 def _check_ported(family: str) -> None:
     """Model families the port does not cover yet raise instead of running."""
-    if family != "dense":
+    if family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"not ported yet (a later slice of the port, see ROADMAP): family {family!r} "
-            "(only 'dense' is ported)"
+            "(only 'dense' and 'hybrid' are ported)"
         )
 
 
 class TieredEngine:
-    """Single-device engine for dense archs with tiered KV."""
+    """Single-device engine for dense and hybrid archs with tiered KV."""
 
     def __init__(
         self,
@@ -147,6 +151,15 @@ class TieredEngine:
         self._step_fn = serve_rt.make_tiered_decode_step(
             model, ts, use_kernels=self.device.type == "cuda", device=self.device
         )
+        # SSM side state of a hybrid arch: (conv bf16, ssm f32) per layer
+        # and slot; None for the dense family.
+        self.ssm_state = None
+        if cfg.family == "hybrid":
+            conv_shape, ssm_shape = ssm_state_shapes(cfg, batch_slots)
+            self.ssm_state = (
+                torch.zeros(conv_shape, dtype=torch.bfloat16, device=self.device),
+                torch.zeros(ssm_shape, dtype=torch.float32, device=self.device),
+            )
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.slot_len = np.zeros(batch_slots, np.int64)
         self.queue: List[Request] = []
@@ -249,6 +262,11 @@ class TieredEngine:
         st.total_len[slot] = s
         self.slot_len[slot] = s
         req.out_tokens.append(int(torch.argmax(logits[0, -1])))
+        if self.cfg.family == "hybrid":
+            # The slot's SSM side state: the recurrent prefill's final states.
+            conv, sst = self.ssm_state
+            conv[:, slot] = state.conv_state[:, 0].to(conv.dtype)
+            sst[:, slot] = state.ssm_state[:, 0]
         self.stats.prefill_s += time.perf_counter() - t0
 
     def _decode_step(self):
@@ -257,8 +275,9 @@ class TieredEngine:
         for i, req in enumerate(self.slots):
             if req is not None and req.out_tokens:
                 tokens[i, 0] = req.out_tokens[-1]
-        logits, tkv, _, telemetry = self._step_fn(
-            self.params, torch.as_tensor(tokens, device=self.device), self.cache.state, None
+        logits, tkv, self.ssm_state, telemetry = self._step_fn(
+            self.params, torch.as_tensor(tokens, device=self.device), self.cache.state,
+            self.ssm_state,
         )
         self.cache.state = tkv
         telemetry = {k: v.cpu().numpy() for k, v in telemetry.items()}

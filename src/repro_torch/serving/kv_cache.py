@@ -42,8 +42,9 @@ cohort:
 The per-page ``migrate`` path is the batched executor's oracle and serves
 the single-page evictions of ``append_page``. Host sentinels' key centroids
 and the per-page fetch dequantize through ``kops.dequant_pages`` on
-``self.device`` (the CUDA kernel on a GPU). Preemption (park/restore) comes
-with the frontend.
+``self.device`` (the CUDA kernel on a GPU), or, for HOST8 pages on the
+``cxl_hw`` expander, through ``kops.cxl_decode_pages``. Preemption
+(park/restore) comes with the frontend.
 """
 
 from __future__ import annotations
@@ -55,13 +56,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import tco
+from repro_torch.core import codecs, tco
 from repro_torch.core.manager import ManagerConfig, TierScapeManager
 from repro_torch.core.pools import ClassPartition, SlotAllocator, exchange_slots
 from repro_torch.core.tiers import TierSet, get as get_tier
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import ref as kref
 from repro_torch.media.devices import adaptive_devices, make_queues
 from repro_torch.media.faults import FaultyMediaDevice
 from repro_torch.media.pipeline import PAYLOAD_KEYS, MigrationPipeline
@@ -403,18 +403,18 @@ class TieredKVCache:
     # over the page's T tokens of the dequantized stored K payload) in
     # ``state.host_summary`` plus a ``host_table`` entry.
     def _host_sentinel_insert(
-        self, rids, layers, slots, k_pay, k_sc, bits: int,
+        self, rids, layers, slots, k_pay, k_sc, level: int,
         editor: Optional[_TableEditor] = None,
     ) -> None:
         rids = np.asarray(rids, np.int64)
         if rids.size == 0:
             return
-        # One dequant launch on the cache's device (f32 out, bit-equal to the
+        # One decode launch on the cache's device (f32 out, bit-equal to the
         # plain version), then the reference's numpy f32 mean over tokens.
         self.kernel_dispatches += 1
-        deq = kops.dequant_pages(
+        deq = self._decode_pages(
             torch.as_tensor(k_pay, device=self.device),
-            torch.as_tensor(k_sc, device=self.device), bits, torch.float32,
+            torch.as_tensor(k_sc, device=self.device), level,
         )
         summ = _np(deq).mean(axis=1)  # [P, KV, hd]
         hs = np.array(
@@ -518,7 +518,7 @@ class TieredKVCache:
                 self._pool_slot[rids[sel]] = -2
                 self._set_placement(rids[sel], dst)
                 self._host_sentinel_insert(
-                    rids[sel], layers[sel], slots[sel], kp, ks, bits, editor
+                    rids[sel], layers[sel], slots[sel], kp, ks, dst, editor
                 )
             if dst == WARM:
                 kp_sz = int(pay[:p].numel())
@@ -774,7 +774,7 @@ class TieredKVCache:
                 self.host_pages[int(r)] = (kp[i], ks[i], vp[i], vs[i])
             self._pool_slot[rids] = -2
             self._set_placement(rids, dst)
-            self._host_sentinel_insert(rids, layers, slots, kp, ks, self._bits[dst], editor)
+            self._host_sentinel_insert(rids, layers, slots, kp, ks, dst, editor)
 
     def _scatter_device(self, dst, rids, layers, slots, k_pay, k_sc, v_pay, v_sc, editor):
         pool = _POOL[dst]
@@ -930,7 +930,7 @@ class TieredKVCache:
         self._set_placement(rids, dst)
         layers = rids // (self.bs * self.max_pages)
         slots = (rids // self.max_pages) % self.bs
-        self._host_sentinel_insert(rids, layers, slots, kp, ks, self._bits[dst])
+        self._host_sentinel_insert(rids, layers, slots, kp, ks, dst)
         return actual
 
     def _commit_class_rows(
@@ -1081,9 +1081,19 @@ class TieredKVCache:
         vp, vs = kops.quant_pages(vpage[None], bits)
         return kp[0], ks[0], vp[0], vs[0]
 
+    def _decode_pages(self, pay: torch.Tensor, sc: torch.Tensor, level: int) -> torch.Tensor:
+        """Pages stored at placement ``level`` back to f32 on the cache's
+        device, in one launch: a HOST8 page on the ``cxl_hw`` expander reads
+        through ``cxl_decode_pages`` (the controller decompresses inline),
+        every other level through ``dequant_pages``. Both give int8 (or
+        int4) times the scale, the same values."""
+        if level == HOST8 and self._dev_names[HOST8] == "cxl_hw":
+            return kops.cxl_decode_pages(pay, sc)
+        return kops.dequant_pages(pay, sc, self._bits[level], torch.float32)
+
     def _fetch_dense(self, rid, layer, slot, page):
-        """Decompress a page from wherever it lives: two ``dequant_pages``
-        launches (K, V) on the cache's device, f32 out."""
+        """Decompress a page from wherever it lives: two decode launches
+        (K, V) on the cache's device, f32 out (``_decode_pages``)."""
         src = int(self.physical[rid])
         ps = int(self._pool_slot[rid])
         self.kernel_dispatches += 2
@@ -1093,9 +1103,8 @@ class TieredKVCache:
             k_pay, k_sc, v_pay, v_sc = (
                 torch.as_tensor(x, device=self.device) for x in self.host_pages[rid]
             )
-        bits = self._bits[src]
-        return (kops.dequant_pages(k_pay[None], k_sc[None], bits, torch.float32)[0],
-                kops.dequant_pages(v_pay[None], v_sc[None], bits, torch.float32)[0])
+        return (self._decode_pages(k_pay[None], k_sc[None], src)[0],
+                self._decode_pages(v_pay[None], v_sc[None], src)[0])
 
     def _remove(self, rid, layer, slot, page):
         src = int(self.physical[rid])
@@ -1147,7 +1156,7 @@ class TieredKVCache:
         if dst not in _DEVICE:
             self._host_sentinel_insert(
                 np.array([rid], np.int64), np.array([layer]), np.array([slot]),
-                _np(kp)[None], _np(ks)[None], bits,
+                _np(kp)[None], _np(ks)[None], dst,
             )
 
     # ------------------------------------------------------------ release
@@ -1261,7 +1270,7 @@ class TieredKVCache:
         adaptive = adaptive_devices(self.media_queues)
         if not adaptive:
             return
-        line = kref.CXL_LINE_ELEMS
+        line = codecs.CXL_LINE_ELEMS
         for name, dev in adaptive.items():
             levels = [lvl for lvl in (HOST8, HOST4) if self._dev_names[lvl] == name]
             if not levels:
@@ -1278,12 +1287,8 @@ class TieredKVCache:
                         q = np.ascontiguousarray(pay).reshape(-1).view(np.int8)
                         n_lines = q.size // line
                         if n_lines:
-                            lines = q[: n_lines * line].reshape(-1, line)
-                            narrow = (
-                                np.abs(lines.astype(np.int32)).max(axis=1) <= kref.CXL_NARROW_QMAX
-                            )
-                            n_narrow = int(narrow.sum())
-                            wire += n_narrow * (line // 2) + (n_lines - n_narrow) * line
+                            bits = codecs.cxl_line_bits(torch.from_numpy(q[: n_lines * line]))
+                            wire += int(bits.sum()) * line // 8
                         wire += q.size - n_lines * line
                     for sc in (ks, vs):
                         b = int(sc.size) * int(sc.dtype.itemsize)

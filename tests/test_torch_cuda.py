@@ -1,12 +1,13 @@
 """The CUDA kernels against their plain versions, on a GPU.
 
-Torch-only (the GPU host has no JAX): quant, transcode and dequant
-(f32 and bf16 out) byte-equal, fused and per-pool attention within
-rtol = atol = 2e-4, across the reference sweep of page shapes and head
-groupings (GQA included), mixed int8/int4/host/invalid table rows, empty
-pools and recent windows; the cache's executors (serial, per-page, and the
-async pipeline through the pinned ring) on the GPU against the CPU. Every
-test skips where
+Torch-only (the GPU host has no JAX): quant, transcode, dequant (f32 and
+bf16 out) and the cxl_hw page codec (encode: payload, scales and line widths;
+decode) byte-equal, fused and per-pool attention within rtol = atol = 2e-4,
+across the reference sweep of page shapes and head groupings (GQA included),
+mixed int8/int4/host/invalid table rows, empty pools and recent windows, and
+every kernel at the zamba2 page shape (T=16, KV=H=32, hd=64); the cache's
+executors (serial, per-page, and the async pipeline through the pinned ring)
+on the GPU against the CPU. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -16,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
@@ -156,6 +157,88 @@ def test_per_pool_path_matches_fused(gen):
         torch.testing.assert_close(p_hot[k], f_hot[k], **TOL, msg=lambda m: f"{k}: {m}")
 
 
+@pytest.mark.parametrize("shape", [(4, 16, 4, 64), (3, 16, 32, 64), (2, 8, 2, 128),
+                                   (2, 4, 3, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cxl_encode_pages_byte_equal(gen, shape, dtype):
+    """Payload, scales and line widths byte-equal to the plain version and
+    the payload and scales to quant_pages(., 8); pages whose later lines
+    are tiny against the row amax narrow to 4 bits."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x[0, ..., 64:] *= 1e-3
+    x = x.to(dtype)
+    before = build.launch_counts()["cxl_encode_pages"]
+    got = cxl_line.cxl_encode_pages(x)
+    want = ref.cxl_encode_kv_page(x)
+    assert build.launch_counts()["cxl_encode_pages"] - before == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    qp, qs = quant_page.quant_pages(x, 8)
+    assert torch.equal(got[0], qp) and torch.equal(got[1], qs)
+    bits = got[2]
+    assert bits.shape == shape[:-1] + (shape[-1] // 64,)
+    assert bool((bits[1:].amax(dim=-1) == 8).all())  # the line holding the row amax
+    if shape[-1] > 64:
+        assert bool((bits[0, ..., 1:] == 4).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 4, 64), (3, 16, 32, 64), (2, 8, 2, 16),
+                                   (5, 16, 20, 128)])
+def test_cxl_decode_pages_bit_equal(gen, shape):
+    pay, sc = ref.quant_kv_page(torch.randn(shape, generator=gen, device="cuda"), 8)
+    before = build.launch_counts()["cxl_decode_pages"]
+    got = cxl_line.cxl_decode_pages(pay, sc)
+    assert build.launch_counts()["cxl_decode_pages"] - before == 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.cxl_decode_kv_page(pay, sc))
+    assert torch.equal(got, dequant_page.dequant_pages(pay, sc, 8, torch.float32))
+
+
+def test_kernels_at_zamba2_width(gen):
+    """Every kernel at the zamba2 page shape [., 16, 32, 64] with H = KV =
+    32 (one warp per head in the attention kernels: 1024 threads a block)."""
+    t, kv, hd, h, b, r, mp = 16, 32, 64, 32, 2, 32, 9
+    x = torch.randn((14, t, kv, hd), generator=gen, device="cuda")
+    for bits in (8, 4):
+        kp, ks = quant_page.quant_pages(x, bits)
+        rp, rs = ref.quant_kv_page(x, bits)
+        assert torch.equal(kp, rp) and torch.equal(ks, rs)
+        tp, ts = transcode_page.transcode_pages(kp, ks, bits, 12 - bits)
+        up, us = ref.transcode_kv_page(kp, ks, bits, 12 - bits)
+        assert torch.equal(tp, up) and torch.equal(ts, us)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequant_page.dequant_pages(kp, ks, bits, out_dtype),
+                               dequant_page.dequant_pages_plain(kp, ks, bits, out_dtype))
+    enc = cxl_line.cxl_encode_pages(x)
+    assert all(torch.equal(g, w) for g, w in zip(enc, ref.cxl_encode_kv_page(x)))
+    assert torch.equal(cxl_line.cxl_decode_pages(enc[0], enc[1]),
+                       ref.cxl_decode_kv_page(enc[0], enc[1]))
+
+    k8, s8k = ref.quant_kv_page(x[:7], 8)
+    v8, s8v = ref.quant_kv_page(x[7:], 8)
+    k4, s4k = ref.quant_kv_page(x[:7] * 0.5, 4)
+    v4, s4v = ref.quant_kv_page(x[7:] * 0.5, 4)
+    summary = torch.randn((4, kv, hd), generator=gen, device="cuda")
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    rk = torch.randn((b, r, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    rv = torch.randn((b, r, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    codes = torch.tensor([pa.TIER_INT8, pa.TIER_INT4, pa.TIER_HOST, pa.TIER_INVALID],
+                         device="cuda")
+    tier = codes[torch.randint(0, 4, (b, 3 * mp), generator=gen, device="cuda")].to(torch.int32)
+    rows = torch.where(tier == pa.TIER_HOST, 4, 7)
+    slot = (torch.rand((b, 3 * mp), generator=gen, device="cuda") * rows).to(torch.int32)
+    rlen = torch.tensor([r, 5], dtype=torch.int32, device="cuda")
+    args = (q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, rk, rv, slot, tier, rlen, t)
+    for g, w in zip(pa.fused_tiered_attention(*args), pa.fused_tiered_attention_plain(*args)):
+        torch.testing.assert_close(g, w, **TOL)
+    table = torch.randint(0, 7, (b, mp), generator=gen, device="cuda", dtype=torch.int32)
+    n = torch.tensor([mp, 3], dtype=torch.int32, device="cuda")
+    for pool in ((k8, s8k, v8, s8v, 8), (k4, s4k, v4, s4v, 4)):
+        pargs = (q,) + pool[:4] + (table, n, pool[4])
+        for g, w in zip(pa.paged_quant_attention(*pargs), ref.paged_quant_attention(*pargs)):
+            torch.testing.assert_close(g, w, **TOL)
+
+
 def test_wrappers_reject_bad_operands(gen):
     x = torch.randn((2, 8, 2, 32), generator=gen, device="cuda")
     with pytest.raises(TypeError):
@@ -169,6 +252,12 @@ def test_wrappers_reject_bad_operands(gen):
         dequant_page.dequant_pages(p, s.cpu(), 8)
     with pytest.raises(TypeError):
         dequant_page.dequant_pages(p, s, 8, torch.float16)
+    with pytest.raises(ValueError, match="multiple"):
+        cxl_line.cxl_encode_pages(x)  # head_dim 32: not whole 64-codeword lines
+    with pytest.raises(TypeError):
+        cxl_line.cxl_decode_pages(p.view(torch.uint8), s)
+    with pytest.raises(ValueError):
+        cxl_line.cxl_decode_pages(p, s.cpu())
 
 
 def test_cache_paths_on_the_gpu_match_the_cpu(gen):

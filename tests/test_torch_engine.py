@@ -259,13 +259,13 @@ def test_engine_mode_matches_reference(models, mode):
 
 def test_unported_family_raises():
     cfg = port_smoke("qwen1_5_4b")
-    hybrid = types.SimpleNamespace(cfg=dataclasses.replace(cfg, family="hybrid"),
-                                   device=torch.device("cpu"))
+    moe = types.SimpleNamespace(cfg=dataclasses.replace(cfg, family="moe"),
+                                device=torch.device("cpu"))
     ts = TierScapeRunConfig(enabled=True)
     with pytest.raises(NotImplementedError, match="family"):
-        TieredEngine(hybrid, {}, ts=ts, device="cpu")
+        TieredEngine(moe, {}, ts=ts, device="cpu")
     with pytest.raises(NotImplementedError, match="family"):
-        serve.make_tiered_decode_step(hybrid, ts, device="cpu")
+        serve.make_tiered_decode_step(moe, ts, device="cpu")
 
 
 # ---------------------------------------------------------------------------
