@@ -29,8 +29,11 @@ Phases (any failure exits non-zero before the result line):
   4. mid-run, one tiered decode step on the same state: kernel vs plain
      branch, and the per-pool step vs the fused step (logits, hotness);
   5. each kernel held to its plain version again and timed at the shapes
-     the run gave it, their bounds, both engines' decode/prefill/window
-     times, tokens/s and peak memory;
+     the run gave it (the per-pool attention kernel through its unchecked
+     launch, so its wrapper's host range check is not timed), their bounds,
+     both engines' decode/prefill/window times, tokens/s and peak memory;
+     the two attention kernels, launched twice on the same inputs, must
+     give byte-equal outputs (phases 2 and 5);
   6. the full-width ``zamba2_1_2b`` engine (38 SSM layers, the shared
      attention block's 7 applications over the tiered KV, random bf16
      weights from a seed) serves 3 requests on the default async + prefetch
@@ -232,12 +235,15 @@ def attention_operands(g: torch.Generator, b: int, h: int, kv: int, hd: int, mp:
 
 def check_attention(operands) -> float:
     got = pa.fused_tiered_attention(*operands)
+    again = pa.fused_tiered_attention(*operands)
     want = pa.fused_tiered_attention_plain(*operands)
     torch.cuda.synchronize()
     err = 0.0
-    for name, a, w in zip(("out", "m", "l", "mass", "base"), got, want):
+    for name, a, a2, w in zip(("out", "m", "l", "mass", "base"), got, again, want):
         if not torch.isfinite(a).all():
             fail(f"fused_tiered_attention: non-finite {name}")
+        if not torch.equal(a, a2):
+            fail(f"fused_tiered_attention: two launches on the same inputs differ in {name}")
         torch.testing.assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL, msg=lambda m: f"{name}: {m}")
         err = max(err, float((a - w).abs().max()))
     return err
@@ -255,12 +261,15 @@ def check_dequant(pay, sc, bits, out_dtype) -> float:
 
 def check_paged(args) -> float:
     got = pa.paged_quant_attention(*args)
+    again = pa.paged_quant_attention_launch(*args)
     want = ref.paged_quant_attention(*args)
     torch.cuda.synchronize()
     err = 0.0
-    for name, a, w in zip(("out", "m", "l", "mass", "base"), got, want):
+    for name, a, a2, w in zip(("out", "m", "l", "mass", "base"), got, again, want):
         if not torch.isfinite(a).all():
             fail(f"paged_quant_attention: non-finite {name}")
+        if not torch.equal(a, a2):
+            fail(f"paged_quant_attention: two launches on the same inputs differ in {name}")
         torch.testing.assert_close(a, w, rtol=ATTN_TOL, atol=ATTN_TOL, msg=lambda m: f"{name}: {m}")
         err = max(err, float((a - w).abs().max()))
     return err
@@ -1015,23 +1024,26 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
                  time_ms(lambda: pa.fused_tiered_attention(*operands)),
                  time_ms(lambda: pa.fused_tiered_attention_plain(*operands)), ab, None,
                  f"B={eng.bs} MS={slot.shape[1]} valid rows int8/int4/host="
-                 f"{int((tier == 0).sum())}/{int((tier == 1).sum())}/{int((tier == 2).sum())}"))
+                 f"{int((tier == 0).sum())}/{int((tier == 1).sum())}/{int((tier == 2).sum())}, "
+                 f"cluster S={pa.LAST_CLUSTER['fused_tiered_attention']}"))
     # paged_quant_attention: one layer's two per-pool launches (warm int8 +
-    # cold int4) on the same state and q.
+    # cold int4) on the same state and q, timed through the unchecked launch
+    # (the public wrapper's range check copies the table to the host).
     pool_args = [(q, p["k_pages"], p["k_scales"], p["v_pages"], p["v_scales"],
                   p["page_table"], p["n_pages"], p["bits"]) for p in pools.values()]
     for args in pool_args:
         errs["paged_quant_attention"] = max(errs["paged_quant_attention"], check_paged(args))
     work = [paged_work(a) for a in pool_args]
     pb = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
-    per = {name: time_ms(lambda a=a: pa.paged_quant_attention(*a))
+    per = {name: time_ms(lambda a=a: pa.paged_quant_attention_launch(*a))
            for name, a in zip(pools, pool_args)}
     rows.append(("paged_quant_attention",
-                 time_ms(lambda: [pa.paged_quant_attention(*a) for a in pool_args]),
+                 time_ms(lambda: [pa.paged_quant_attention_launch(*a) for a in pool_args]),
                  time_ms(lambda: [ref.paged_quant_attention(*a) for a in pool_args]), pb, None,
                  f"layer 0, warm int8 + cold int4 launches, B={eng.bs} MP="
                  f"{pool_args[0][5].shape[1]} valid pages warm/cold="
-                 f"{int(layer['warm_n'].sum())}/{int(layer['cold_n'].sum())}; alone: "
+                 f"{int(layer['warm_n'].sum())}/{int(layer['cold_n'].sum())}, cluster S="
+                 f"{pa.LAST_CLUSTER['paged_quant_attention']}; alone: "
                  + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())))
     launches = dict(counts, paged_quant_attention=pp_counts["paged_quant_attention"])
     if encoder is not None:

@@ -12,10 +12,12 @@ per-page key centroid (telemetry, never accumulated), the dense recent window
 follows, and the logsumexp merge happens in the kernel — one launch per
 (layer, decode step).
 
-Bound by bytes: each valid page's compressed K and V are read once. The
-kernel runs one block per sequence and walks the rows serially (the page's
-``(mass, base)`` reduces over all heads), so at a small batch it fills few
-SMs and sits far above that bound; see the note in the CUDA source.
+Bound by bytes: each valid page's compressed K and V are read once. Both
+kernels split each sequence's work over a thread-block cluster of ``S``
+blocks (``csrc/attn_split.cuh``): every block takes a contiguous share of
+the sequence's valid rows for all heads, and the blocks merge their
+``(acc, m, l)`` through distributed shared memory in rank order, in the same
+launch. ``LAST_CLUSTER`` holds the cluster size of each kernel's last launch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,29 @@ TIER_HOST = 2
 TIER_INVALID = -1
 
 _P = ctypes.c_void_p
+_CLUSTER = ctypes.POINTER(ctypes.c_int)
+
+# Cluster size (blocks per sequence) of each kernel's last launch.
+LAST_CLUSTER = {"fused_tiered_attention": 0, "paged_quant_attention": 0}
+
+
+def _check_split_shape(name: str, h: int, kv: int, hd: int) -> None:
+    """The shapes the split block takes (``csrc/attn_split.cuh``): a thread
+    owns 16 or 32 head-dim values of one head, the lanes of a head are a
+    power of two, and the heads' chunks fit 512 threads."""
+    ok = h > 0 and kv > 0 and h % kv == 0 and any(
+        hd % c == 0 and hd // c in (1, 2, 4, 8, 16, 32) and h * hd // c <= 512 for c in (16, 32))
+    if not ok:
+        raise ValueError(f"{name}: head_dim {hd} must be 16, 32, 64, 128 or 256, H ({h}) a "
+                         f"multiple of KV ({kv}), and H * head_dim <= 16384")
+
+
+def _kernel_q(q: torch.Tensor) -> torch.Tensor:
+    """q as the kernels read it: bf16 or f32 (other types go to f32),
+    contiguous."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        q = q.to(torch.float32)
+    return q.contiguous()
 
 
 def fused_tiered_attention_plain(
@@ -46,8 +71,8 @@ def fused_tiered_attention_plain(
     oracles: each codec class is one ``paged_quant_attention`` pass whose
     rows are valid where the tier code names that class, host rows are
     ``host_page_mass`` where the code is ``TIER_HOST``, and the partials
-    merge at the maximum over the non-empty ones (the kernel's running max:
-    ``m`` is the largest valid score, 0 where ``l`` is 0)."""
+    merge by the kernel's rule (``ref.merge_ranks``: at the maximum over the
+    non-empty ones; ``m`` is the largest valid score, 0 where ``l`` is 0)."""
     b, ms = uni_slot.shape
     dev = q.device
     rlen = torch.as_tensor(recent_len, dtype=torch.int32, device=dev).expand(b)
@@ -70,16 +95,8 @@ def fused_tiered_attention_plain(
     mass = torch.where(sel, hm, mass)
     base = torch.where(sel, hb, base)
 
-    live = [torch.where(lsum > 0, m, NEG_INF) for _, m, lsum in parts]
-    m_tot = torch.stack(live).amax(dim=0)
-    m_tot = torch.where(m_tot > NEG_INF / 2, m_tot, 0.0)
-    num = 0.0
-    l_tot = 0.0
-    for out_u, m, lsum in parts:
-        w = torch.where(lsum > 0, torch.exp(m - m_tot), 0.0)
-        num = num + out_u * w[..., None]
-        l_tot = l_tot + lsum * w
-    out = num / torch.clamp(l_tot, min=1e-30)[..., None]
+    acc, m_tot, l_tot = ref.merge_ranks(parts)
+    out = acc / torch.clamp(l_tot, min=1e-30)[..., None]
     return out, m_tot, l_tot, mass, base
 
 
@@ -118,12 +135,11 @@ def fused_tiered_attention(
     t, kv = k8.shape[1], k8.shape[2]
     ms = uni_slot.shape[1]
     r = recent_k.shape[1]
-    if hd % 2 or hd > 256 or h % kv:
-        raise ValueError(f"{name}: head_dim {hd} must be even and <= 256, H % KV == 0")
-    qf = q.to(torch.float32).contiguous()
+    _check_split_shape(name, h, kv, hd)
+    q = _kernel_q(q)
     f32, i32 = torch.float32, torch.int32
     for nm, x, dt, shape in (
-        ("q", qf, f32, (b, h, hd)),
+        ("q", q, (f32, torch.bfloat16), (b, h, hd)),
         ("k8", k8, torch.int8, (k8.shape[0], t, kv, hd)),
         ("s8k", s8k, f32, k8.shape[:3]),
         ("v8", v8, torch.int8, k8.shape),
@@ -147,16 +163,20 @@ def fused_tiered_attention(
     base = torch.empty((b, ms), dtype=f32, device=dev)
     lib = build.load("paged_attention")
     fn = lib.fused_tiered_attention_launch
-    fn.argtypes = [_P] * 20 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, _P]
+    fn.argtypes = ([_P] * 20 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, _CLUSTER,
+                                                      _P])
     fn.restype = ctypes.c_int
     ptrs = [x.data_ptr() for x in (
-        qf, k8, s8k, v8, s8v, k4, s4k, v4, s4v, host_summary, recent_k, recent_v,
+        q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, host_summary, recent_k, recent_v,
         uni_slot, uni_tier, recent_len, out, m, lsum, mass, base,
     )]
     qdiv = float(np.float32(hd**0.5))
-    err = fn(*ptrs, b, h, kv, hd, t, r, ms, qdiv, float(page_tokens), build.stream_handle(dev))
+    cluster = ctypes.c_int(0)
+    err = fn(*ptrs, b, h, kv, hd, t, r, ms, int(q.dtype == torch.bfloat16), qdiv,
+             float(page_tokens), ctypes.byref(cluster), build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(name)
+    LAST_CLUSTER[name] = cluster.value
     return out, m, lsum, mass, base
 
 
@@ -176,9 +196,10 @@ def paged_quant_attention(
 
     Returns (out [B,H,hd] UNNORMALIZED f32, m [B,H] (0 for an empty pool),
     l [B,H], mass [B,MP], base [B,MP]); rows >= n_pages give mass 0 and base
-    -1e30. Bound by bytes like the fused kernel, and like it one block per
-    sequence. On CPU tensors the plain version ``ref.paged_quant_attention``
-    runs."""
+    -1e30. On CPU tensors the plain version ``ref.paged_quant_attention``
+    runs. On the GPU the operands are checked, the valid table prefix is held
+    to the pool's rows (one copy to the host), and
+    ``paged_quant_attention_launch`` launches the kernel."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if q.device.type == "cpu":
@@ -189,13 +210,12 @@ def paged_quant_attention(
     b, h, hd = q.shape
     p, t, kv = k_pages.shape[:3]
     mp = page_table.shape[1]
-    if hd % 2 or hd > 256 or h % kv:
-        raise ValueError(f"{name}: head_dim {hd} must be even and <= 256, H % KV == 0")
-    qf = q.to(torch.float32).contiguous()
+    _check_split_shape(name, h, kv, hd)
+    q = _kernel_q(q)
     pay_dt, hdp = (torch.int8, hd) if bits == 8 else (torch.uint8, hd // 2)
     f32, i32 = torch.float32, torch.int32
     for nm, x, dt, shape in (
-        ("q", qf, f32, (b, h, hd)),
+        ("q", q, (f32, torch.bfloat16), (b, h, hd)),
         ("k_pages", k_pages, pay_dt, (p, t, kv, hdp)),
         ("k_scales", k_scales, f32, (p, t, kv)),
         ("v_pages", v_pages, pay_dt, (p, t, kv, hdp)),
@@ -209,6 +229,22 @@ def paged_quant_attention(
     rows = page_table[valid]
     if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= p):
         raise IndexError(f"{name}: page table addresses rows outside the pool's {p} rows")
+    return paged_quant_attention_launch(q, k_pages, k_scales, v_pages, v_scales, page_table,
+                                        n_pages, bits)
+
+
+def paged_quant_attention_launch(q, k_pages, k_scales, v_pages, v_scales, page_table, n_pages,
+                                 bits: int):
+    """The launch behind ``paged_quant_attention``, without its checks: the
+    operands must already be what that wrapper accepts (CUDA, contiguous,
+    the valid table prefix inside the pool). Allocates the outputs, launches
+    the kernel once and counts the launch; no copy to the host."""
+    name = "paged_quant_attention"
+    dev = q.device
+    b, h, hd = q.shape
+    t, kv = k_pages.shape[1], k_pages.shape[2]
+    mp = page_table.shape[1]
+    f32 = torch.float32
     out = torch.empty((b, h, hd), dtype=f32, device=dev)
     m = torch.empty((b, h), dtype=f32, device=dev)
     lsum = torch.empty((b, h), dtype=f32, device=dev)
@@ -216,12 +252,15 @@ def paged_quant_attention(
     base = torch.empty((b, mp), dtype=f32, device=dev)
     lib = build.load("paged_quant_attention")
     fn = lib.paged_quant_attention_launch
-    fn.argtypes = [_P] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float, _CLUSTER, _P]
     fn.restype = ctypes.c_int
-    ptrs = [x.data_ptr() for x in (qf, k_pages, k_scales, v_pages, v_scales, page_table,
+    ptrs = [x.data_ptr() for x in (q, k_pages, k_scales, v_pages, v_scales, page_table,
                                    n_pages, out, m, lsum, mass, base)]
     qdiv = float(np.float32(hd**0.5))
-    err = fn(*ptrs, b, h, kv, hd, t, mp, bits, qdiv, build.stream_handle(dev))
+    cluster = ctypes.c_int(0)
+    err = fn(*ptrs, b, h, kv, hd, t, mp, bits, int(q.dtype == torch.bfloat16), qdiv,
+             ctypes.byref(cluster), build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(name)
+    LAST_CLUSTER[name] = cluster.value
     return out, m, lsum, mass, base

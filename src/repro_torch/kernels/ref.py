@@ -220,6 +220,25 @@ def merge_partials(parts: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]])
     return num / den[..., None]
 
 
+def merge_ranks(parts: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
+    """The split attention kernels' merge of partials [(acc_unnorm, m, l),
+    ...] (one per cluster rank, in rank order): m_tot is the largest m among
+    the partials with l > 0 (0 where none has), each partial weighs
+    exp(m - m_tot) where its l > 0 and 0 elsewhere, and acc and l are summed
+    in list order. Returns (acc_unnorm, m, l) with m = 0 where l == 0; the
+    fused kernel then normalizes out = acc / max(l, 1e-30)."""
+    live = [torch.where(lsum > 0, m, NEG_INF) for _, m, lsum in parts]
+    m_tot = torch.stack(live).amax(dim=0)
+    m_tot = torch.where(m_tot > NEG_INF / 2, m_tot, 0.0)
+    acc = 0.0
+    l_tot = 0.0
+    for out_u, m, lsum in parts:
+        w = torch.where(lsum > 0, torch.exp(m - m_tot), 0.0)
+        acc = acc + out_u * w[..., None]
+        l_tot = l_tot + lsum * w
+    return acc, torch.where(l_tot > 0, m_tot, 0.0), l_tot
+
+
 def host_page_mass(
     q: torch.Tensor,  # [B, H, hd]
     summaries: torch.Tensor,  # [Hs, KV, hd] f32 per-page key centroids

@@ -196,7 +196,8 @@ def test_cxl_decode_pages_bit_equal(gen, shape):
 
 def test_kernels_at_zamba2_width(gen):
     """Every kernel at the zamba2 page shape [., 16, 32, 64] with H = KV =
-    32 (one warp per head in the attention kernels: 1024 threads a block)."""
+    32 (the attention kernels' split block: 32 heads x 4 chunks of 16 values
+    x 4 token groups, 512 threads)."""
     t, kv, hd, h, b, r, mp = 16, 32, 64, 32, 2, 32, 9
     x = torch.randn((14, t, kv, hd), generator=gen, device="cuda")
     for bits in (8, 4):
@@ -237,6 +238,100 @@ def test_kernels_at_zamba2_width(gen):
         pargs = (q,) + pool[:4] + (table, n, pool[4])
         for g, w in zip(pa.paged_quant_attention(*pargs), ref.paged_quant_attention(*pargs)):
             torch.testing.assert_close(g, w, **TOL)
+
+
+def _split_operands(gen, b, t, kv, h, hd, ms, n_valid, rlen, r=32):
+    """A unified table of ``ms`` columns per sequence (int8, int4 and host
+    thirds) whose valid rows are the first ``n_valid[i]`` of each third,
+    with stale slots behind TIER_INVALID codes, at the engine's page shape."""
+    dev = "cuda"
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    p8 = p4 = 48
+    k8, s8k = ref.quant_kv_page(rn(p8, t, kv, hd), 8)
+    v8, s8v = ref.quant_kv_page(rn(p8, t, kv, hd) * 0.5, 8)
+    k4, s4k = ref.quant_kv_page(rn(p4, t, kv, hd), 4)
+    v4, s4v = ref.quant_kv_page(rn(p4, t, kv, hd) * 0.5, 4)
+    summary = rn(16, kv, hd)
+    q = rn(b, h, hd).to(torch.bfloat16)
+    rk, rv = rn(b, r, kv, hd).to(torch.bfloat16), rn(b, r, kv, hd).to(torch.bfloat16)
+    third = ms // 3
+    slot = torch.zeros((b, ms), dtype=torch.int32, device=dev)
+    tier = torch.full((b, ms), pa.TIER_INVALID, dtype=torch.int32, device=dev)
+    for i in range(b):
+        nw, nc, nh = n_valid[i % len(n_valid)]
+        for j, (n, code, rows) in enumerate(((nw, pa.TIER_INT8, p8), (nc, pa.TIER_INT4, p4),
+                                             (nh, pa.TIER_HOST, 16))):
+            lo = j * third
+            slot[i, lo:lo + third] = torch.randint(0, rows, (third,), generator=gen, device=dev,
+                                                   dtype=torch.int32)
+            tier[i, lo:lo + n] = code
+    rl = torch.tensor([rlen[i % len(rlen)] for i in range(b)], dtype=torch.int32, device=dev)
+    return (q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, rk, rv, slot, tier, rl, t)
+
+
+def _assert_split_matches(args):
+    """Fused and per-pool kernels against their plain versions at 2e-4, and
+    each launched twice on the same inputs with byte-equal outputs."""
+    got = pa.fused_tiered_attention(*args)
+    again = pa.fused_tiered_attention(*args)
+    want = pa.fused_tiered_attention_plain(*args)
+    for name, g, a, w in zip(("out", "m", "l", "mass", "base"), got, again, want):
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m: f"fused {name}: {m}")
+        assert torch.equal(g, a), f"fused {name}: two launches differ"
+    q, k8, s8k, v8, s8v, k4, s4k, v4, s4v = args[:9]
+    slot, tier = args[12], args[13]
+    for bits, code, pool in ((8, pa.TIER_INT8, (k8, s8k, v8, s8v)),
+                             (4, pa.TIER_INT4, (k4, s4k, v4, s4v))):
+        n = (tier == code).sum(dim=1).to(torch.int32)
+        table = slot[:, :64].contiguous()
+        # The valid prefix of this codec's third, then stale rows.
+        third = slot.shape[1] // 3
+        lo = 0 if bits == 8 else third
+        table[:, :third] = slot[:, lo:lo + third]
+        pargs = (q,) + pool + (table, n, bits)
+        got = pa.paged_quant_attention(*pargs)
+        again = pa.paged_quant_attention_launch(*pargs)
+        want = ref.paged_quant_attention(*pargs)
+        for name, g, a, w in zip(("out", "m", "l", "mass", "base"), got, again, want):
+            torch.testing.assert_close(g, w, **TOL, msg=lambda m: f"int{bits} {name}: {m}")
+            assert torch.equal(g, a), f"int{bits} {name}: two launches differ"
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("t, kv, h, hd", [(16, 20, 20, 128), (16, 32, 32, 64)])
+def test_split_attention_long_tables(gen, b, t, kv, h, hd):
+    """The cluster split at the engines' page shapes on 96-column tables
+    (64-row per-pool tables): every rank of the cluster gets rows, the
+    kernels match their plain versions and are deterministic."""
+    args = _split_operands(gen, b, t, kv, h, hd, 96, [(20, 30, 6), (3, 32, 12), (32, 9, 0)],
+                           [32, 17, 0])
+    _assert_split_matches(args)
+    s = pa.LAST_CLUSTER["fused_tiered_attention"]
+    assert 1 <= s <= 16
+    work = int(((args[13] >= 0) & (args[13] <= 2)).sum(dim=1).min())
+    assert work >= s, f"a rank of the {s}-block cluster got no row"
+    assert pa.LAST_CLUSTER["paged_quant_attention"] >= 1
+
+
+@pytest.mark.parametrize("case", ["empty_stripes", "all_host", "recent_len_zero", "gqa"])
+def test_split_attention_edges(gen, case):
+    """Ranks with no work (3 valid rows over a 96-column table), a sequence
+    that sees host sentinels only, an empty recent window, and GQA with
+    H = 64, KV = 8."""
+    t, kv, h, hd, b = 16, 20, 20, 128, 2
+    n_valid, rlen = [(20, 30, 6), (3, 32, 12)], [32, 5]
+    if case == "empty_stripes":
+        n_valid, rlen = [(1, 1, 1), (0, 2, 0)], [0, 0]
+    elif case == "all_host":
+        n_valid, rlen = [(0, 0, 32), (0, 0, 7)], [0, 9]
+    elif case == "recent_len_zero":
+        rlen = [0, 0]
+    else:
+        kv, h = 8, 64
+    _assert_split_matches(_split_operands(gen, b, t, kv, h, hd, 96, n_valid, rlen))
 
 
 def test_wrappers_reject_bad_operands(gen):
