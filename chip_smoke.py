@@ -21,8 +21,10 @@ Phases (any failure exits non-zero before the result line):
      (async migration + prefetch). Launch counts, reset before and read
      after each path, prove every decode layer ran the fused kernel and that
      page-out, migration and the host sentinels ran the quant, transcode and
-     dequant kernels (as often as the cache called them); a few steps under
-     ``ops.use_fused(False)`` drive the per-pool kernel (2 launches per layer);
+     dequant kernels (as often as the cache called them), and every page-out
+     reached ``quant_pages`` in the KV cache's bf16 (no f32 upcast); a few
+     steps under ``ops.use_fused(False)`` drive the per-pool kernel (2
+     launches per layer);
   3b. at reduced depth and full width, the cache's serial and async
      executors land bit-identical placements and payloads, with prefetch on
      and off, and under a ``seeded_storm`` fault plan;
@@ -30,7 +32,10 @@ Phases (any failure exits non-zero before the result line):
      branch, and the per-pool step vs the fused step (logits, hotness);
   5. each kernel held to its plain version again and timed at the shapes
      the run gave it (the per-pool attention kernel through its unchecked
-     launch, so its wrapper's host range check is not timed), their bounds,
+     launch, so its wrapper's host range check is not timed; ``quant_pages``
+     also on f32 pages of the same shape, as the engine handed them over
+     when it upcast the cache), an empty launch as the floor under every
+     small one, their bounds,
      both engines' decode/prefill/window times, tokens/s and peak memory;
      the two attention kernels, launched twice on the same inputs, must
      give byte-equal outputs (phases 2 and 5);
@@ -366,11 +371,13 @@ class Spy:
         self.fn = fn
         self.launches = launches
         self.calls = 0
+        self.dtypes = set()  # of the operands of the launching calls
         self.largest = None  # (numel, shape, dtype, other args)
 
     def __call__(self, x, *args):
         if self.launches(args):
             self.calls += 1
+            self.dtypes.add(x.dtype)
         if self.largest is None or x.numel() > self.largest[0]:
             self.largest = (x.numel(), tuple(x.shape), x.dtype, args)
         return self.fn(x, *args)
@@ -504,6 +511,15 @@ def engine_metrics(stats, reqs, wall, peak, steps=None, decode_s=None) -> dict:
     }
 
 
+def check_bf16_page_out(spies, what: str) -> None:
+    """The engine hands its page-outs to ``quant_pages`` in the KV cache's
+    own bf16 (the kernel's upcast is exact; an f32 copy would double the
+    bytes it reads)."""
+    if spies["quant_pages"].dtypes != {torch.bfloat16}:
+        fail(f"{what}: page-outs reached quant_pages as {spies['quant_pages'].dtypes}, "
+             "expected bf16 only")
+
+
 def check_counts(counts: dict, what: str) -> None:
     """No plain version ran on the path: every cache call of a kernel's
     dispatch launched the kernel."""
@@ -551,6 +567,7 @@ def phase_serial(cfg, model, params, alpha: float = 0.5, compare: bool = True):
         fail(f"serial: page-out/migration kernels not on the path: {counts}")
     if not forced:
         check_counts(counts, "serial")
+    check_bf16_page_out(spies, "serial")
     if stats.attn_launches != counts["fused_tiered_attention"]:
         fail(f"serial: billed attention launches {stats.attn_launches} != counted {counts}")
     metrics = engine_metrics(stats, reqs, wall, peak)
@@ -562,12 +579,12 @@ def phase_serial(cfg, model, params, alpha: float = 0.5, compare: bool = True):
 
 class PageEncoder:
     """Wraps a cache's ``append_pages``: every page-out's layer-0 K and V
-    pages (bf16, the KV cache's own type: the engine hands them over upcast
-    to f32, so the cast back is exact) go through ``cxl_encode_pages`` as
-    the expander would store them, before the cache takes them. No engine
-    path calls the encode kernel; this is where the run gives it real
-    pages. Keeps the first page-out's pages (the first prefill's) for the
-    checks and timings, and the line widths of all of them."""
+    pages (bf16, the KV cache's own type, as the engine hands them over) go
+    through ``cxl_encode_pages`` as the expander would store them, before
+    the cache takes them. No engine path calls the encode kernel; this is
+    where the run gives it real pages. Keeps the first page-out's pages (the
+    first prefill's) for the checks and timings, and the line widths of all
+    of them."""
 
     def __init__(self, cache):
         self.fn = cache.append_pages
@@ -579,7 +596,7 @@ class PageEncoder:
     def __call__(self, entries, k, v):
         rows = torch.as_tensor([i for i, e in enumerate(entries) if e[0] == 0], device=k.device)
         if rows.numel():
-            pages = torch.cat([k[rows], v[rows]]).to(torch.bfloat16)
+            pages = torch.cat([k[rows], v[rows]])
             self.calls += 1
             _, _, bits = cxl_line.cxl_encode_pages(pages)
             self.line_bits.append(bits.reshape(-1))
@@ -713,6 +730,7 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
             fail(f"{what}: cxl_encode_pages launched {encoded} times for {encoder.calls} "
                  "page-outs")
     check_counts(counts, what)
+    check_bf16_page_out(spies, what)
     if stats.attn_launches != counts["fused_tiered_attention"] + pp_counts["paged_quant_attention"]:
         fail(f"{what}: billed attention launches {stats.attn_launches} != counted "
              f"{counts} + {pp_counts}")
@@ -963,9 +981,13 @@ def library_dequant(pay, sc, bits, out_dtype):
 def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> list:
     """Each kernel held to its plain version again and timed at the shapes
     the run gave it (the cxl codec's two as well when ``encoder`` holds the
-    run's page-outs)."""
-    rows = []
+    run's page-outs); ``quant_pages`` also on f32 pages of the same shape
+    (the page-out as the engine handed it over when it upcast the cache),
+    and an empty launch as the floor of every row."""
+    rows, extra = [], {}
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    floor = time_ms(lambda: quant_page.empty_launch(DEV))
+    log(f"  empty launch (the floor): {floor:.4f} ms")
     # quant_pages at the largest page-out batch of the run.
     _, shape, dtype, (bits,) = spies["quant_pages"].largest
     pages = torch.randn(shape, generator=g, device=DEV).to(dtype)
@@ -976,6 +998,15 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
     rows.append(("quant_pages", time_ms(lambda: quant_page.quant_pages(pages, bits)),
                  time_ms(lambda: ref.quant_kv_page(pages, bits)), qb, None,
                  f"{tuple(pages.shape)} {pages.dtype} -> int{bits}"))
+    del pages
+    pages = torch.randn(shape, generator=g, device=DEV)
+    errs["quant_pages"] = max(errs["quant_pages"], check_quant(pages, bits))
+    n = pages.numel()
+    fb, _ = bound_ms(n * 4 + (n if bits == 8 else n // 2) + n // pages.shape[-1] * 4, 6 * n)
+    extra["quant_pages"] = {"f32": {
+        "ms": time_ms(lambda: quant_page.quant_pages(pages, bits)), "bound_ms": fb,
+        "shape": f"{tuple(pages.shape)} {pages.dtype} -> int{bits}"}}
+    log(f"  quant_pages in f32: {extra['quant_pages']['f32']}")
     del pages
     # transcode_pages at the largest migration cohort of the run.
     _, shape, _, (_, src, dst) = spies["transcode_pages"].largest
@@ -1075,7 +1106,7 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
             "name": name, "route": "cuda", "source": src_path, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": shape,
+            "shape": shape, "floor_ms": floor, **extra.get(name, {}),
         })
         log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
             f"library {lib_ms}) at {shape}; launches {launches[name]}")
@@ -1175,7 +1206,8 @@ def main() -> int:
     for k in kernels:
         z = zrows.pop(k["name"])
         k["at_hd64"] = {f: z[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape")}
+                                          "bound_by", "library_ms", "shape", "floor_ms", "f32")
+                        if f in z}
     kernels += list(zrows.values())
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,

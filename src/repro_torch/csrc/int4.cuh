@@ -26,8 +26,13 @@ __device__ __forceinline__ float int4_hi(uint8_t b) {
   return (float)(v >= 8 ? v - 16 : v);
 }
 
+// One byte of two codes given by their low bits (two's complement).
+__device__ __forceinline__ uint8_t pack_int4_bits(uint32_t lo, uint32_t hi) {
+  return (uint8_t)((lo & 0xF) | ((hi & 0xF) << 4));
+}
+
 __device__ __forceinline__ uint8_t pack_int4(float lo, float hi) {
-  return (uint8_t)(((int)lo & 0xF) | (((int)hi & 0xF) << 4));
+  return pack_int4_bits((uint32_t)(int)lo, (uint32_t)(int)hi);
 }
 
 __device__ __forceinline__ float quant_scale(float amax, float qmax) {

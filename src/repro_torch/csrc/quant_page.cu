@@ -1,67 +1,58 @@
 // KV-page block quantization (the tier compress path), for sm_90a.
 //
 // Replaces the Pallas kernel repro/kernels/quant_page.py::quant_pages
-// (_quant_kernel). One warp per (page, token, kv-head) row of head_dim
-// values: absmax by warp shuffle, then per-element IEEE divide, rint and
-// clamp (the row step shared with cxl_line.cu, quant_row.cuh); int4 packs
-// each lane's adjacent pair into one byte.
+// (_quant_kernel): per (page, token, kv-head) row of head_dim f32 or bf16
+// values, scale = absmax / QMAX (1 where the row is 0) and codes
+// clamp(rint(x / scale), +-QMAX), int8 or int4 packed (even index in the low
+// nibble), byte-equal to the plain version (kernels/ref.py).
 //
-// Bound: bytes. Each row is read once (f32 or bf16) and its payload and one
-// f32 scale written once; the arithmetic is a handful of operations per
-// element. The design streams rows with coalesced pair loads and keeps the
-// row in registers between the absmax and the quantization, so nothing is
-// read twice.
+// Bound: bytes. Each row is read once and its codes and one f32 scale
+// written once; the arithmetic is a handful of operations per element
+// (337.7 MB a 2720-page qwen1_5_4b page-out in bf16: 0.101 ms at 3.35 TB/s).
+// The design (row_group.cuh): a row group of G lanes holds a row in 16-byte
+// vectors (G = 16 at bf16 hd128, 8 at bf16 hd64, 32 at f32 hd128), the
+// absmax is a log2(G)-step shuffle, each lane keeps up to 4 rows of the next
+// batch in flight while it quantizes the current one, and the codes come
+// from a reciprocal multiply that falls back to the IEEE divide only within
+// 2^-15 of a rounding tie.
 #include <cuda_runtime.h>
 
-#include "quant_row.cuh"
+#include "row_group.cuh"
 
-template <typename T, int BITS>
-__global__ void quant_rows_kernel(const T* __restrict__ x, void* __restrict__ payload,
-                                  float* __restrict__ scales, long long rows, int hd) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int npairs = hd >> 1;
-  float2 q[MAX_PAIRS_PER_LANE];
-  const float scale = quant_row<T>(x + row * hd, npairs, lane, BITS == 8 ? 127.f : 7.f, q);
-  if (BITS == 8) {
-    store_int8_row(reinterpret_cast<char2*>(payload) + row * npairs, npairs, lane, q);
-  } else {
-#pragma unroll
-    for (int j = 0; j < MAX_PAIRS_PER_LANE; ++j) {
-      const int i = lane + 32 * j;
-      if (i < npairs) {
-        reinterpret_cast<uint8_t*>(payload)[row * npairs + i] = pack_int4(q[j].x, q[j].y);
-      }
-    }
-  }
-  if (lane == 0) scales[row] = scale;
-}
-
-template <typename T>
-static void launch(const void* x, void* payload, float* scales, long long rows, int hd,
-                   int bits, cudaStream_t stream) {
-  const int warps = 8;
-  const long long blocks = (rows + warps - 1) / warps;
-  if (bits == 8) {
-    quant_rows_kernel<T, 8><<<(unsigned)blocks, warps * 32, 0, stream>>>(
-        static_cast<const T*>(x), payload, scales, rows, hd);
-  } else {
-    quant_rows_kernel<T, 4><<<(unsigned)blocks, warps * 32, 0, stream>>>(
-        static_cast<const T*>(x), payload, scales, rows, hd);
-  }
-}
+using row_group::Src;
 
 // x: [rows, hd] f32 (x_is_bf16 == 0) or bf16; payload: [rows, hd] int8 or
-// [rows, hd/2] uint8; scales: [rows] f32. rows = P * T * KV.
+// [rows, hd/2] uint8; scales: [rows] f32. rows = P * T * KV. (vec_bytes,
+// lanes, vectors) is kernels/row_group.py's geometry for (hd, dtype, bits).
 extern "C" int quant_pages_launch(const void* x, int x_is_bf16, void* payload, void* scales,
-                                  long long rows, int hd, int bits, void* stream) {
+                                  long long rows, int hd, int bits, int vec_bytes, int lanes,
+                                  int vectors, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scales);
+  cudaError_t err = cudaErrorInvalidValue;
   if (x_is_bf16) {
-    launch<__nv_bfloat16>(x, payload, static_cast<float*>(scales), rows, hd, bits, s);
+    err = bits == 8 ? row_group::requant_rows<Src::BF16, 8>(x, nullptr, payload, sc, rows, hd,
+                                                            vec_bytes, lanes, vectors, s)
+        : bits == 4 ? row_group::requant_rows<Src::BF16, 4>(x, nullptr, payload, sc, rows, hd,
+                                                            vec_bytes, lanes, vectors, s)
+                    : cudaErrorInvalidValue;
   } else {
-    launch<float>(x, payload, static_cast<float*>(scales), rows, hd, bits, s);
+    err = bits == 8 ? row_group::requant_rows<Src::F32, 8>(x, nullptr, payload, sc, rows, hd,
+                                                           vec_bytes, lanes, vectors, s)
+        : bits == 4 ? row_group::requant_rows<Src::F32, 4>(x, nullptr, payload, sc, rows, hd,
+                                                           vec_bytes, lanes, vectors, s)
+                    : cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// Measurement hook, the floor of a small launch: an empty kernel, one block,
+// launched through the same ctypes path as the kernels (timed by
+// chip_smoke.py and scripts/row_group_times.py; no caller in the port).
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, row_group::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,15 @@
-// Shared row steps of the KV-page kernels: the absmax quantization of one
-// (page, token, kv-head) row by one warp (quant_page.cu, cxl_line.cu) and the
-// int8 dequantization of one head-dim pair (dequant_page.cu, cxl_line.cu).
+// Shared row steps of the cxl_hw page codec and the dequant kernel: the absmax
+// quantization of one (page, token, kv-head) row by one warp (cxl_line.cu)
+// and the int8 dequantization of one head-dim pair (dequant_page.cu,
+// cxl_line.cu).
 //
 // A warp holds a row of head_dim values as element pairs: lane l keeps pair
 // i = l + 32 * j in v[j], for j < MAX_PAIRS_PER_LANE (head_dim <= 256). The
 // quantization is kernels/ref.py's exactly (int4.cuh: IEEE divide, rintf,
-// clamp), so every kernel built on it is byte-equal to its plain version.
+// clamp). quant_page.cu computes the same codes through its own row-group step
+// (row_group.cuh); the byte-equality of cxl_encode_pages with
+// quant_pages(., 8) is checked on the card (chip_smoke.py, phases 2 and 6;
+// tests/test_torch_cuda.py), not shared code.
 #pragma once
 
 #include <cuda_bf16.h>

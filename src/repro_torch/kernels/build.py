@@ -147,6 +147,15 @@ def check_operand(kernel: str, name: str, t, dtypes, device, shape=None) -> None
         raise ValueError(f"{kernel}: {name} must be contiguous and pair-aligned")
 
 
+def check_aligned(kernel: str, name: str, t, nbytes: int) -> None:
+    """Raise unless ``t``'s data pointer is aligned to the ``nbytes``-byte
+    vectors its kernel loads or stores (the geometry is fixed by the shapes;
+    no narrower path is taken for an odd pointer)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{kernel}: {name} must be {nbytes}-byte aligned for the kernel's "
+                         f"vectors (data pointer {t.data_ptr():#x})")
+
+
 def stream_handle(device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     import torch

@@ -231,7 +231,9 @@ class TieredEngine:
     def _prefill(self, slot: int, req: Request):
         """Dense prefill, then page the prompt KV into the warm tier
         (batched: one quant launch for all layers x pages). The KV stays on
-        the device (the reference round-trips it through host numpy)."""
+        the device in the cache's own type (the reference round-trips it
+        through host numpy in f32; the quantization upcasts exactly, so the
+        codes and scales are the same)."""
         t0 = time.perf_counter()
         s = len(req.prompt)
         if req.out_tokens:
@@ -242,8 +244,8 @@ class TieredEngine:
         logits, state = self.model.prefill(self.params, batch, state)
         # Page out everything except the tail that fits the recent window.
         n_full_pages = max((s - self.recent_window // 2) // self.pt, 0)
-        k = state.k_cache[:, 0].to(torch.float32)  # [L,S,KV,hd]
-        v = state.v_cache[:, 0].to(torch.float32)
+        k = state.k_cache[:, 0]  # [L,S,KV,hd]
+        v = state.v_cache[:, 0]
         entries = [
             (layer, slot, page)
             for layer in range(self.la) for page in range(n_full_pages)
@@ -256,8 +258,8 @@ class TieredEngine:
         # Remaining tail into the recent window.
         tlen = s - n_full_pages * self.pt
         st = self.cache.state
-        st.recent_k[:, slot, :tlen] = k[:, n_full_pages * self.pt:s].to(st.recent_k.dtype)
-        st.recent_v[:, slot, :tlen] = v[:, n_full_pages * self.pt:s].to(st.recent_v.dtype)
+        st.recent_k[:, slot, :tlen] = k[:, n_full_pages * self.pt:s]
+        st.recent_v[:, slot, :tlen] = v[:, n_full_pages * self.pt:s]
         st.recent_len[slot] = tlen
         st.total_len[slot] = s
         self.slot_len[slot] = s
@@ -323,8 +325,7 @@ class TieredEngine:
         ]
         if not full:
             return
-        k = st.recent_k.to(torch.float32)  # [L,B,R,KV,hd]
-        v = st.recent_v.to(torch.float32)
+        k, v = st.recent_k, st.recent_v  # [L,B,R,KV,hd], handed to page-out as they are
         entries, src = [], []
         shift = np.zeros(self.bs, np.int64)
         for i in full:

@@ -452,7 +452,8 @@ class TieredKVCache:
         """Batched ingestion: quantize all N new pages with one kernel
         launch per destination tier (K and V stacked into one batch) and
         commit the page tables once. ``entries`` is [(layer, slot, page)];
-        kpages/vpages are [N, T, KV, hd] float tensors."""
+        kpages/vpages are [N, T, KV, hd] f32 or bf16 tensors (the engine
+        hands over the KV cache's bf16; quantization upcasts exactly)."""
         n = len(entries)
         if n == 0:
             return

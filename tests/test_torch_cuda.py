@@ -2,7 +2,8 @@
 
 Torch-only (the GPU host has no JAX): quant, transcode, dequant (f32 and
 bf16 out) and the cxl_hw page codec (encode: payload, scales and line widths;
-decode) byte-equal, fused and per-pool attention within rtol = atol = 2e-4,
+decode) byte-equal (quant and transcode also at hd 16-256, ragged row counts,
+all-zero rows and exact ties, and refusing a view off their 16-byte vectors), fused and per-pool attention within rtol = atol = 2e-4,
 across the reference sweep of page shapes and head groupings (GQA included),
 mixed int8/int4/host/invalid table rows, empty pools and recent windows, and
 every kernel at the zamba2 page shape (T=16, KV=H=32, hd=64); the cache's
@@ -47,6 +48,83 @@ def test_quant_and_transcode_byte_equal(gen, shape, dtype):
     after = build.launch_counts()
     assert after["quant_pages"] - before["quant_pages"] == 2
     assert after["transcode_pages"] - before["transcode_pages"] == 2
+
+
+def _tie_pages(rows: int, hd: int, dtype) -> torch.Tensor:
+    """Rows whose codes are exact round-half-even ties: amax = 127 * 2^e sets
+    scale = 2^e and the other values are (k + 0.5) * 2^e (exact in bf16 as in
+    f32); every third row is all zero (scale 1)."""
+    k = torch.arange(hd, device="cuda", dtype=torch.float32) % 254 - 127
+    e = torch.arange(rows, device="cuda", dtype=torch.float32) % 9 - 4
+    x = (k + 0.5)[None, :].clamp(-126.5, 126.5) * torch.exp2(e)[:, None]
+    x[:, 0] = 127 * torch.exp2(e)
+    x[::3] = 0
+    return x.to(dtype).reshape(rows, 1, 1, hd)
+
+
+def _transcode_tie_payload(rows: int, hd: int, bits: int) -> tuple:
+    """Payloads whose requantization meets exact ties: int8 rows with amax
+    code 126 hold 9 (q = 9 * 7 / 126 = 0.5), int4 rows with amax code -8 hold
+    4 (q = 4 * 127 / 8 = 63.5); old scales of 1, 2^-3 and 0.37. Every fifth
+    int8 row holds -128, the code without a positive twin."""
+    if bits == 8:
+        codes = torch.tensor([126, 9, -9, 27, -45, 0, 1, -126], device="cuda", dtype=torch.int8)
+        pay = codes.repeat(rows, (hd + 7) // 8)[:, :hd].clone()
+        pay[::5, 1] = -128
+    else:
+        nib = torch.tensor([-8, 4, -4, 3, 0, 7, -1, 2], device="cuda", dtype=torch.int32)
+        q = nib.repeat(rows, (hd + 7) // 8)[:, :hd]
+        pay = ((q[:, 0::2] & 0xF) | ((q[:, 1::2] & 0xF) << 4)).to(torch.uint8)
+    sc = torch.tensor([1.0, 0.125, 0.37], device="cuda").repeat(rows)[:rows]
+    return pay.reshape(rows, 1, 1, -1).contiguous(), sc.reshape(rows, 1, 1).contiguous()
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_group_kernels_byte_equal(gen, hd, dtype):
+    """quant_pages (f32 and bf16 in) and transcode_pages (both directions)
+    byte-equal to their plain versions at ragged row counts, on random rows
+    (some all zero) and on exact ties; one launch per call."""
+    for rows in (1, 7, 33, 320, 4097):
+        x = torch.randn((rows, 1, 1, hd), generator=gen, device="cuda")
+        x *= torch.exp2(torch.randint(-8, 8, (rows, 1, 1, 1), generator=gen, device="cuda"))
+        x[::5] = 0
+        for pages in (x.to(dtype), _tie_pages(rows, hd, dtype)):
+            for bits in (8, 4):
+                before = build.launch_counts()
+                kp, ks = quant_page.quant_pages(pages, bits)
+                rp, rs = ref.quant_kv_page(pages, bits)
+                assert torch.equal(kp, rp) and torch.equal(ks, rs), (rows, bits)
+                tp, ts = transcode_page.transcode_pages(kp, ks, bits, 12 - bits)
+                up, us = ref.transcode_kv_page(kp, ks, bits, 12 - bits)
+                assert torch.equal(tp, up) and torch.equal(ts, us), (rows, bits)
+                after = build.launch_counts()
+                assert after["quant_pages"] - before["quant_pages"] == 1
+                assert after["transcode_pages"] - before["transcode_pages"] == 1
+        for bits in (8, 4):
+            pay, sc = _transcode_tie_payload(rows, hd, bits)
+            tp, ts = transcode_page.transcode_pages(pay, sc, bits, 12 - bits)
+            up, us = ref.transcode_kv_page(pay, sc, bits, 12 - bits)
+            assert torch.equal(tp, up) and torch.equal(ts, us), (rows, bits, "ties")
+
+
+def test_row_group_wrappers_reject_misaligned_views(gen):
+    """A contiguous view 8 bytes off the 16-byte vectors the geometry loads
+    raises (pair-aligned, which the other kernels take): no narrower path."""
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.randn(2 * 16 * 2 * 64 + 16, generator=gen, device="cuda").to(dtype)
+        off = 8 // flat.element_size()
+        x = flat[off:off + 2 * 16 * 2 * 64].view(2, 16, 2, 64)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 8
+        with pytest.raises(ValueError, match="aligned"):
+            quant_page.quant_pages(x, 8)
+    pay, sc = quant_page.quant_pages(torch.randn((3, 16, 2, 64), generator=gen,
+                                                 device="cuda"), 8)
+    flat = torch.zeros(pay.numel() + 8, dtype=torch.int8, device="cuda")
+    view = flat[8:].view(pay.shape)
+    view.copy_(pay)
+    with pytest.raises(ValueError, match="aligned"):
+        transcode_page.transcode_pages(view, sc, 8, 4)
 
 
 @pytest.mark.parametrize("t, kv, hd", [(8, 1, 32), (16, 4, 64), (16, 2, 128), (64, 8, 128)])
