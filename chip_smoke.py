@@ -34,8 +34,10 @@ Phases (any failure exits non-zero before the result line):
      the run gave it (the per-pool attention kernel through its unchecked
      launch, so its wrapper's host range check is not timed; ``quant_pages``
      also on f32 pages of the same shape, as the engine handed them over
-     when it upcast the cache), an empty launch as the floor under every
-     small one, their bounds,
+     when it upcast the cache; ``dequant_pages`` also on int8, in f32 and
+     bf16, beside one ``torch.mul``, at the run's largest int8 call or the
+     largest call's pages where the run made none), an empty launch
+     as the floor under every small one, their bounds,
      both engines' decode/prefill/window times, tokens/s and peak memory;
      the two attention kernels, launched twice on the same inputs, must
      give byte-equal outputs (phases 2 and 5);
@@ -367,19 +369,25 @@ class Spy:
     ones that launch) and records the largest operand shape, so phase 5
     times each kernel at the serving path's own shapes. Keeps no tensor."""
 
-    def __init__(self, fn, launches=lambda args: True):
+    def __init__(self, fn, launches=lambda args: True, key=lambda args: None):
         self.fn = fn
         self.launches = launches
+        self.key = key
         self.calls = 0
         self.dtypes = set()  # of the operands of the launching calls
-        self.largest = None  # (numel, shape, dtype, other args)
+        self.largest_by = {}  # key(args) -> (numel, shape, dtype, other args)
+
+    @property
+    def largest(self):
+        return max(self.largest_by.values(), key=lambda c: c[0], default=None)
 
     def __call__(self, x, *args):
         if self.launches(args):
             self.calls += 1
             self.dtypes.add(x.dtype)
-        if self.largest is None or x.numel() > self.largest[0]:
-            self.largest = (x.numel(), tuple(x.shape), x.dtype, args)
+        k = self.key(args)
+        if k not in self.largest_by or x.numel() > self.largest_by[k][0]:
+            self.largest_by[k] = (x.numel(), tuple(x.shape), x.dtype, args)
         return self.fn(x, *args)
 
 
@@ -389,7 +397,7 @@ SPIED = ("quant_pages", "transcode_pages", "dequant_pages", "cxl_decode_pages")
 def install_spies() -> dict:
     spies = {"quant_pages": Spy(ops.quant_pages),
              "transcode_pages": Spy(ops.transcode_pages, lambda a: a[1] != a[2]),
-             "dequant_pages": Spy(ops.dequant_pages),
+             "dequant_pages": Spy(ops.dequant_pages, key=lambda a: a[1]),  # by bits
              "cxl_decode_pages": Spy(ops.cxl_decode_pages)}
     for name, spy in spies.items():
         setattr(ops, name, spy)
@@ -970,12 +978,39 @@ def layer_pools(state, layer: int) -> tuple:
 
 
 def library_dequant(pay, sc, bits, out_dtype):
-    """One PyTorch call computing int8 payload x scale in f32 (type
-    promotion does the cast), where the function is that; else None."""
-    if bits != 8 or out_dtype != torch.float32:
+    """One PyTorch call computing the int8 payload x scale: ``torch.mul``
+    into f32 by type promotion, or into a bf16 ``out`` (the f32 product
+    rounded once, as the plain version's cast); int4 has none (None).
+    Checked equal to the plain version here; timed, never used by the port."""
+    if bits != 8:
         return None
     scales = sc[..., None]
-    return lambda: torch.mul(pay, scales)
+    if out_dtype == torch.float32:
+        def fn():
+            return torch.mul(pay, scales)
+    else:
+        out = torch.empty(pay.shape, dtype=out_dtype, device=pay.device)
+
+        def fn():
+            return torch.mul(pay, scales, out=out)
+    if not torch.equal(fn(), dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)):
+        fail(f"torch.mul int8 -> {out_dtype}: differs from the plain dequant")
+    return fn
+
+
+def dequant_row(g, shape, bits, out_dtype, errs) -> tuple:
+    """dequant_pages on a fresh payload of the run's ``shape``: checked,
+    then timed beside its plain version and the library call."""
+    hd = shape[-1] * (1 if bits == 8 else 2)
+    pay, sc = ref.quant_kv_page(torch.randn(shape[:-1] + (hd,), generator=g, device=DEV), bits)
+    errs["dequant_pages"] = max(errs["dequant_pages"], check_dequant(pay, sc, bits, out_dtype))
+    elems = sc.numel() * hd
+    db = bound_ms(pay.numel() + sc.numel() * 4 + elems * out_dtype.itemsize, elems)
+    lib = library_dequant(pay, sc, bits, out_dtype)
+    return ("dequant_pages",
+            time_ms(lambda: dequant_page.dequant_pages(pay, sc, bits, out_dtype)),
+            time_ms(lambda: dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)), db,
+            lib and time_ms(lib), f"{tuple(pay.shape)} int{bits} -> {out_dtype}")
 
 
 def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> list:
@@ -1024,18 +1059,21 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
                  time_ms(lambda: ref.transcode_kv_page(pay, sc, src, dst)), tb, None,
                  f"{tuple(pay.shape)} int{src} -> int{dst}"))
     # dequant_pages at the largest batch the run gave it (f32 sentinels or
-    # the per-page path's fetch).
+    # the per-page path's fetch); int8 in f32 and bf16 beside torch.mul, at
+    # the run's largest int8 batch, or, where the run made none (HOST8 left
+    # empty), at the largest batch's pages as int8 codes.
     _, shape, _, (_, bits, out_dtype) = spies["dequant_pages"].largest
-    hd = shape[-1] * (1 if bits == 8 else 2)
-    pay, sc = ref.quant_kv_page(torch.randn(shape[:-1] + (hd,), generator=g, device=DEV), bits)
-    errs["dequant_pages"] = max(errs["dequant_pages"], check_dequant(pay, sc, bits, out_dtype))
-    elems = sc.numel() * hd
-    db = bound_ms(pay.numel() + sc.numel() * 4 + elems * out_dtype.itemsize, elems)
-    lib = library_dequant(pay, sc, bits, out_dtype)
-    rows.append(("dequant_pages",
-                 time_ms(lambda: dequant_page.dequant_pages(pay, sc, bits, out_dtype)),
-                 time_ms(lambda: dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)), db,
-                 lib and time_ms(lib), f"{tuple(pay.shape)} int{bits} -> {out_dtype}"))
+    rows.append(dequant_row(g, shape, bits, out_dtype, errs))
+    int8 = spies["dequant_pages"].largest_by.get(8)
+    shape8 = int8[1] if int8 else shape[:-1] + (shape[-1] * (1 if bits == 8 else 2),)
+    extra["dequant_pages"] = {"int8": {"source": "the run's largest int8 call" if int8 else
+                                       "the largest call's pages as int8 (no int8 call)"}}
+    for od in (torch.float32, torch.bfloat16):
+        _, ms, plain_ms, (b_ms, _), lib_ms, what = dequant_row(g, shape8, 8, od, errs)
+        extra["dequant_pages"]["int8"][str(od).split(".")[1]] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms,
+            "shape": what}
+    log(f"  dequant_pages int8: {extra['dequant_pages']['int8']}")
     # fused_tiered_attention on layer 0 of the live mid-run state.
     cfg = eng.cfg
     layer, pools = layer_pools(state, 0)
@@ -1206,7 +1244,7 @@ def main() -> int:
     for k in kernels:
         z = zrows.pop(k["name"])
         k["at_hd64"] = {f: z[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape", "floor_ms", "f32")
+                                          "bound_by", "library_ms", "shape", "floor_ms", "f32", "int8")
                         if f in z}
     kernels += list(zrows.values())
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,

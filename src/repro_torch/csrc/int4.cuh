@@ -4,27 +4,16 @@
 // head-dim pairs pack into one byte, the EVEN index in the LOW nibble, both
 // nibbles two's complement. Quantization follows kernels/ref.py exactly:
 // scale = amax / QMAX (1 where amax == 0), q = clamp(rint(x / scale), +-QMAX)
-// with IEEE division and round-half-even (never reciprocal-multiply or
-// floor(x + 0.5), which flip ties). Build without --use_fast_math.
+// with round-half-even (never floor(x + 0.5), which flips ties). quantize()
+// below is that formula with the IEEE divide. row_group.cuh multiplies by
+// the row's reciprocal scale instead, wherever that provably rounds alike
+// (more than 2^-15 from a rounding tie), and falls back to quantize()
+// elsewhere, so its codes equal quantize()'s. Build without --use_fast_math.
 #pragma once
 
 #include <cstdint>
 
 #define REPRO_NEG_INF (-1e30f)
-
-// Pairs of head-dim elements one lane handles: element pair i = lane + 32*j
-// for j < MAX_PAIRS_PER_LANE, so head_dim <= 256.
-constexpr int MAX_PAIRS_PER_LANE = 4;
-
-__device__ __forceinline__ float int4_lo(uint8_t b) {
-  int v = b & 0xF;
-  return (float)(v >= 8 ? v - 16 : v);
-}
-
-__device__ __forceinline__ float int4_hi(uint8_t b) {
-  int v = (b >> 4) & 0xF;
-  return (float)(v >= 8 ? v - 16 : v);
-}
 
 // One byte of two codes given by their low bits (two's complement).
 __device__ __forceinline__ uint8_t pack_int4_bits(uint32_t lo, uint32_t hi) {

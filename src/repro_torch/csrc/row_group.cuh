@@ -1,8 +1,10 @@
-// Row-group step of the two KV-page requantization kernels, for sm_90a:
-// quant_page.cu (f32/bf16 rows -> int8/int4) and transcode_page.cu (int8 <->
-// int4 rows, dequantized with their old scale first). One template, one
-// kernel per (source format, destination width, vector width, vectors per
-// lane).
+// Row-group step of the KV-page kernels, for sm_90a. Requantization:
+// quant_page.cu (f32/bf16 rows -> int8/int4), transcode_page.cu (int8 <->
+// int4 rows, dequantized with their old scale first) and cxl_line.cu's
+// encode (f32/bf16 rows -> int8, plus the stored width of each 64-code
+// hardware line: LINES). Dequantization: dequant_page.cu (int8/int4 rows ->
+// f32/bf16). One kernel template over both steps (rows_kernel), one
+// instantiation per (step, formats, vector width, vectors per lane).
 //
 // A row is one (page, token, kv-head) vector of head_dim values; its bytes
 // are cut into C chunks of VB bytes (VB = 16 where the row allows it, else
@@ -12,13 +14,13 @@
 // load each, so neighbouring lanes read neighbouring bytes and a warp reads
 // 32 / G rows at once. The row's absmax is a __shfl_xor_sync max over
 // log2(G) steps inside the group. The geometry is chosen in Python
-// (kernels/row_group.py) from (head_dim, source format, destination width)
+// (kernels/row_group.py) from (head_dim, source format, output format)
 // alone; the pointers must be aligned to it, and the launcher refuses those
 // that are not (no narrower path is taken at run time).
 //
 // Rows in flight: a lane holds up to K = 4 / V rows of a batch in registers
 // and, in a grid-stride loop over batches, issues the NEXT batch's vector
-// loads (and old scales) before it reduces and requantizes the current one
+// loads (and scales) before it computes the current one
 // (a register double buffer). The grid is the card's resident block count
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), capped by the work;
 // K drops to 2 or 1 rows where that puts a tenth fewer rows in series on a
@@ -50,11 +52,34 @@
 // cohorts. Codes become floats by adding their bits under 2^23 (Elements),
 // rint is y + 1.5 * 2^23 (round to nearest even in the add), and the code is
 // that sum's low bits (fast_codes).
+//
+// Line widths (Rows<..., LINES>, the cxl encode): a 64-code line is 128 B of
+// bf16 or 256 B of f32 source, LINE_LANES = 8 or 16 consecutive lanes of one
+// vector slot. Each lane takes its vector's max |code| from the codes it
+// stores (|t - 1.5 * 2^23| on the fast path, the bytes exact_codes gave
+// otherwise), a segmented shuffle over log2(LINE_LANES) steps gives the
+// line's, and the segment's first lane stores 4 (<= 7) or 8. A full-mask
+// shuffle must be reached by every lane of the warp, so with LINES no lane
+// skips the codes: a lane past the rows (the last batch's tail groups) or
+// past the chunks (hd 192 at bf16: 24 chunks on G = 32) computes codes of
+// the zeros its buffers hold, and only its stores are skipped. Payload and
+// scales are those of quant_pages(., 8) by construction.
+//
+// Dequantization (DequantRows, dequant_page.cu): the same loads, rows in
+// flight and grid; each code becomes its exact float (Elements) times the
+// row's scale by __fmul_rn, f32 or __floats2bfloat162_rn, so the output is
+// the plain version's q.float() * scale (.to(bf16)) bit for bit. No
+// shuffle. Bound: bytes, mostly stores (int4 -> f32 writes 8x what it
+// reads), so its vectors are cut by the output: a lane's source vector is
+// the codes of 16 output bytes (2 B of int4 -> f32 up to 8 B of int8 ->
+// bf16), and the lanes of a group store neighbouring 16-byte vectors.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "int4.cuh"
 
@@ -165,16 +190,20 @@ constexpr float RINT_MAGIC = 12582912.f;  // 1.5 * 2^23: y + M is rint(y) + M fo
 // at a quarter), and t's low bits hold the code (t = 2^23 + 2^22 + code). No
 // clamp: |x| <= amax bounds |y| by qmax (1 + 3u) < qmax + 0.5. Returns false
 // where any element sits within 2^-15 of a half-integer or is not finite
-// (NaN fails the test), for exact_codes to redo the vector.
-template <int DST, int E, int OB>
-__device__ __forceinline__ bool fast_codes(const float (&x)[E], float rcp, Codes<OB>& out) {
+// (NaN fails the test), for exact_codes to redo the vector. CMAX: cmax gets
+// the vector's max |code|, |t - 1.5 * 2^23| (exact), for the line widths.
+template <int DST, int E, int OB, bool CMAX>
+__device__ __forceinline__ bool fast_codes(const float (&x)[E], float rcp, Codes<OB>& out,
+                                           float& cmax) {
   bool ok = true;
   uint32_t t[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const float y = __fmul_rn(x[e], rcp);
     const float tf = __fadd_rn(y, RINT_MAGIC);
-    ok &= fabsf(__fsub_rn(y, __fsub_rn(tf, RINT_MAGIC))) < TIE_GUARD;
+    const float code = __fsub_rn(tf, RINT_MAGIC);
+    ok &= fabsf(__fsub_rn(y, code)) < TIE_GUARD;
+    if constexpr (CMAX) cmax = fmaxf(cmax, fabsf(code));
     t[e] = __float_as_uint(tf);
   }
   if constexpr (DST == 8 && E >= 4) {
@@ -221,17 +250,63 @@ __device__ __noinline__ Codes<VB * 8 / src_bits<S>() * DST / 8> exact_codes(Raw<
   return out;
 }
 
-template <Src S, int DST, int VB, int V>
-struct Rows {
-  static constexpr bool DEQ = S == Src::I8 || S == Src::I4;  // transcode
-  static constexpr int E = VB * 8 / src_bits<S>();            // elements a vector holds
-  static constexpr int OB = E * DST / 8;                      // code bytes of a vector
-  static constexpr int KMAX = 4 / V;                          // rows a lane holds
+// The largest |code| of a vector of int8 codes (exact_codes' output, for the
+// line widths of the cxl encode; out of the fast path).
+template <int OB>
+__device__ __forceinline__ float code_amax(const Codes<OB>& c) {
+  static_assert(OB % 4 == 0, "whole words of int8 codes");
+  int m = 0;
+#pragma unroll
+  for (int i = 0; i < OB / 4; ++i) {
+#pragma unroll
+    for (int byte = 0; byte < 4; ++byte) m = max(m, abs((int)(int8_t)(c.w[i] >> (8 * byte))));
+  }
+  return (float)m;
+}
+
+// E dequantized values x[e] * s (IEEE multiply) stored as f32, or as bf16
+// by __floats2bfloat162_rn (round to nearest even, as the plain version's
+// cast), with the widest aligned stores (16 bytes where they fit).
+template <bool BF16, int E>
+__device__ __forceinline__ void store_values(uint8_t* __restrict__ p, const float (&x)[E],
+                                             float s) {
+  constexpr int W = BF16 ? E / 2 : E;  // 32-bit words
+  uint32_t w[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (BF16) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(x[2 * i], s),
+                                                     __fmul_rn(x[2 * i + 1], s));
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    } else {
+      w[i] = __float_as_uint(__fmul_rn(x[i], s));
+    }
+  }
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      reinterpret_cast<uint4*>(p)[i / 4] = make_uint4(w[i], w[i + 1], w[i + 2], w[i + 3]);
+    }
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<unsigned int*>(p) = w[0];
+  }
+}
+
+// The rows of a launch and the loads both steps share: rows of format S cut
+// into chunks of VB bytes, lane j of group g holding chunks j + G v (v < V)
+// of up to K <= KMAX rows a batch, with each row's scale where S is a code
+// format (the transcode's old scales, the dequant's scales).
+template <Src S, int VB, int V>
+struct Batches {
+  static constexpr bool CODES = S == Src::I8 || S == Src::I4;
+  static constexpr int E = VB * 8 / src_bits<S>();  // elements a vector holds
+  static constexpr int KMAX = 4 / V;                 // rows a lane holds
+  static constexpr int VBYTES = VB, VECS = V;
 
   const uint8_t* src;  // read through __ldg
-  const float* old_scales;
-  uint8_t* dst;
-  float* new_scales;
+  const float* src_scales;
   long long rows;
   int chunks, G, K;
 
@@ -245,7 +320,7 @@ struct Rows {
     for (int k = 0; k < KMAX; ++k) {
       const long long row = row_of(b, k, g);
       const bool ok = k < K && row < rows;
-      if constexpr (DEQ) sc[k] = ok ? __ldg(old_scales + row) : 0.f;
+      if constexpr (CODES) sc[k] = ok ? __ldg(src_scales + row) : 0.f;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const int c = v * G + j;
@@ -256,6 +331,33 @@ struct Rows {
       }
     }
   }
+};
+
+template <bool LINES>
+struct LineOut {};  // no line widths
+
+template <>
+struct LineOut<true> {
+  int* line_bits;  // [rows, hd / 64] int32: 4 or 8
+};
+
+// The requantization step (quant, transcode, cxl encode). LINES adds the
+// cxl_hw line widths: a 64-code line is LINE_LANES consecutive lanes of one
+// vector slot (8 at bf16, 16 at f32; kernels/row_group.py's line_geometry),
+// its max |code| a segmented __shfl_xor_sync max over log2(LINE_LANES)
+// steps, stored by the segment's first lane: 4 if <= 7, else 8.
+template <Src S, int DST, int VB, int V, bool LINES = false>
+struct Rows : Batches<S, VB, V>, LineOut<LINES> {
+  using B = Batches<S, VB, V>;
+  static constexpr int E = B::E, KMAX = B::KMAX;
+  static constexpr bool DEQ = B::CODES;  // transcode
+  static constexpr int OB = E * DST / 8;  // code bytes of a vector
+  static constexpr int LINE_LANES = 64 * src_bits<S>() / 8 / VB;
+  static_assert(!LINES || (DST == 8 && VB == 16 && (S == Src::F32 || S == Src::BF16)),
+                "line widths: int8 codes of f32/bf16 rows in 16-byte vectors");
+
+  uint8_t* dst;
+  float* new_scales;
 
   // The lane's share of the row's absmax. Transcode: fabsf(q * os) is
   // RN(|q| |os|), monotone in |q|, so the largest is RN(max |q| * |os|): one
@@ -272,57 +374,112 @@ struct Rows {
     return DEQ ? fmaxf(0.f, __fmul_rn(amax, fabsf(os))) : amax;
   }
 
-  __device__ __forceinline__ void requant(long long b, int g, int j,
-                                          const Raw<VB> (&buf)[KMAX][V],
-                                          const float (&sc)[KMAX]) const {
+  __device__ __forceinline__ void run(long long b, int g, int j, const Raw<VB> (&buf)[KMAX][V],
+                                      const float (&sc)[KMAX]) const {
     const float qmax = DST == 8 ? 127.f : 7.f;
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
-      if (k >= K) break;  // block-uniform: every lane of the warp shuffles alike
-      const long long row = row_of(b, k, g);
+      if (k >= this->K) break;  // block-uniform: every lane of the warp shuffles alike
+      const long long row = this->row_of(b, k, g);
       const float os = DEQ ? sc[k] : 1.f;
       float amax = lane_amax(buf[k], os);
-      for (int o = G >> 1; o > 0; o >>= 1) {
+      for (int o = this->G >> 1; o > 0; o >>= 1) {
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
       }
-      if (row >= rows) continue;
+      // The line shuffle needs every lane of the warp: with LINES a lane past
+      // the rows or the chunks computes the codes of its zero buffers (scale
+      // 1 where the whole group is past the rows) and stores nothing.
+      if constexpr (!LINES) {
+        if (row >= this->rows) continue;
+      }
+      const bool live = !LINES || row < this->rows;
       const float scale = quant_scale(amax, qmax);
       const float rcp = __frcp_rn(scale);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const int c = v * G + j;
-        if (c >= chunks) continue;
+        const int c = v * this->G + j;
+        if constexpr (!LINES) {
+          if (c >= this->chunks) continue;
+        }
+        const bool keep = !LINES || (live && c < this->chunks);
         Elements<S, VB> el(buf[k][v]);
         if constexpr (DEQ) {
 #pragma unroll
           for (int e = 0; e < E; ++e) el.x[e] = __fmul_rn(el.x[e], os);
         }
         Codes<OB> out;
-        if (!fast_codes<DST>(el.x, rcp, out)) out = exact_codes<S, DST, VB>(buf[k][v], os, scale);
-        store_codes<OB>(dst + (row * chunks + c) * OB, out);
+        float cmax = 0.f;
+        if (!fast_codes<DST, E, OB, LINES>(el.x, rcp, out, cmax)) {
+          out = exact_codes<S, DST, VB>(buf[k][v], os, scale);
+          if constexpr (LINES) cmax = code_amax(out);
+        }
+        if (keep) store_codes<OB>(dst + (row * this->chunks + c) * OB, out);
+        if constexpr (LINES) {
+#pragma unroll
+          for (int o = LINE_LANES >> 1; o > 0; o >>= 1) {
+            cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
+          }
+          if (keep && (j & (LINE_LANES - 1)) == 0) {
+            this->line_bits[row * (this->chunks / LINE_LANES) + c / LINE_LANES] =
+                cmax <= 7.f ? 4 : 8;
+          }
+        }
       }
-      if (j == 0) new_scales[row] = scale;
+      if (j == 0 && live) new_scales[row] = scale;
     }
   }
 };
 
-template <Src S, int DST, int VB, int V>
-__global__ void __launch_bounds__(BLOCK) requant_rows_kernel(Rows<S, DST, VB, V> p,
-                                                             long long batches) {
-  using R = Rows<S, DST, VB, V>;
+// The dequantization step: int8/int4 codes to exact floats (Elements: PRMT
+// + FSUB, no I2F), times the row's scale (one load a lane, with the row's
+// codes) by __fmul_rn, stored as f32 or bf16. No shuffle: a lane past the
+// rows or the chunks skips its vectors.
+template <Src S, bool BF16, int VB, int V>
+struct DequantRows : Batches<S, VB, V> {
+  using B = Batches<S, VB, V>;
+  static constexpr int E = B::E, KMAX = B::KMAX;
+  static constexpr int OB = E * (BF16 ? 2 : 4);  // output bytes of a vector
+  static_assert(B::CODES, "dequant reads int8 or int4 codes");
+
+  uint8_t* out;
+
+  __device__ __forceinline__ void run(long long b, int g, int j, const Raw<VB> (&buf)[KMAX][V],
+                                      const float (&sc)[KMAX]) const {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= this->K) break;
+      const long long row = this->row_of(b, k, g);
+      if (row >= this->rows) continue;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c = v * this->G + j;
+        if (c >= this->chunks) continue;
+        const Elements<S, VB> el(buf[k][v]);
+        store_values<BF16>(out + (row * this->chunks + c) * OB, el.x, sc[k]);
+      }
+    }
+  }
+};
+
+// Either step over its rows: a grid-stride loop over batches of rows, the
+// NEXT batch's vector loads (and scales) issued before the current batch
+// computes (a register double buffer).
+template <class R>
+__global__ void __launch_bounds__(BLOCK) rows_kernel(R p, long long batches) {
+  constexpr int KMAX = R::KMAX, V = R::VECS, VB = R::VBYTES;
   const int j = threadIdx.x & (p.G - 1);
   const int g = threadIdx.x / p.G;
-  Raw<VB> cur[R::KMAX][V], nxt[R::KMAX][V];
-  float cs[R::KMAX], ns[R::KMAX];
+  Raw<VB> cur[KMAX][V], nxt[KMAX][V];
+  float cs[KMAX], ns[KMAX];
   long long b = blockIdx.x;
   p.load(b, g, j, cur, cs);
   for (; b < batches; b += gridDim.x) {
     const long long next = b + gridDim.x;
     if (next < batches) p.load(next, g, j, nxt, ns);  // in flight while this batch computes
-    p.requant(b, g, j, cur, cs);
+    p.run(b, g, j, cur, cs);
     if (next >= batches) break;
 #pragma unroll
-    for (int k = 0; k < R::KMAX; ++k) {
+    for (int k = 0; k < KMAX; ++k) {
       cs[k] = ns[k];
 #pragma unroll
       for (int v = 0; v < V; ++v) cur[k][v] = nxt[k][v];
@@ -330,15 +487,12 @@ __global__ void __launch_bounds__(BLOCK) requant_rows_kernel(Rows<S, DST, VB, V>
   }
 }
 
-template <Src S, int DST, int VB, int V>
-cudaError_t launch_rows(const void* src, const float* old_scales, void* dst, float* new_scales,
-                        long long rows, int chunks, int G, cudaStream_t stream) {
-  using R = Rows<S, DST, VB, V>;
-  constexpr int OUT_ALIGN = R::OB < 16 ? R::OB : 16;
-  if (reinterpret_cast<uintptr_t>(src) % VB || reinterpret_cast<uintptr_t>(dst) % OUT_ALIGN) {
-    return cudaErrorMisalignedAddress;
-  }
-  auto kernel = requant_rows_kernel<S, DST, VB, V>;
+// Launches rows_kernel<R> on the card's resident block count
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), capped by the work.
+// p's rows, chunks and G are set; K is chosen here.
+template <class R>
+cudaError_t launch_rows(R p, cudaStream_t stream) {
+  auto kernel = rows_kernel<R>;
   static int resident = 0;  // blocks the card holds at once, per instantiation
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -350,13 +504,12 @@ cudaError_t launch_rows(const void* src, const float* old_scales, void* dst, flo
     resident = sms * per_sm;
     if (resident <= 0) return cudaErrorInvalidConfiguration;
   }
-  R p{static_cast<const uint8_t*>(src), old_scales, static_cast<uint8_t*>(dst), new_scales,
-      rows, chunks, G, R::KMAX};
   // Rows a lane holds, K: KMAX, unless fewer cut the rows in series on a
   // lane (rounds of the grid-stride loop times K) by a tenth or more. A
   // small cohort then spreads over more blocks; a large one keeps its loads
   // in flight (at 200 rounds, K = 1 for 1 row in 200 fewer ran 1.3x slower).
-  const long long groups = BLOCK / G;
+  p.K = R::KMAX;
+  const long long rows = p.rows, groups = BLOCK / p.G;
   auto batches_at = [&](int k) { return (rows + groups * k - 1) / (groups * k); };
   auto serial_rows = [&](int k) { return (batches_at(k) + resident - 1) / resident * k; };
   for (int k = R::KMAX >> 1; k >= 1; k >>= 1) {
@@ -368,59 +521,104 @@ cudaError_t launch_rows(const void* src, const float* old_scales, void* dst, flo
   return cudaGetLastError();
 }
 
-template <Src S, int DST, int VB>
-cudaError_t by_vectors(int V, const void* src, const float* os, void* dst, float* ns,
-                       long long rows, int chunks, int G, cudaStream_t stream) {
-  switch (V) {
-    case 1: return launch_rows<S, DST, VB, 1>(src, os, dst, ns, rows, chunks, G, stream);
-    case 2: return launch_rows<S, DST, VB, 2>(src, os, dst, ns, rows, chunks, G, stream);
-    case 4: return launch_rows<S, DST, VB, 4>(src, os, dst, ns, rows, chunks, G, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Requantizes ``rows`` rows of head_dim ``hd`` from format S to DST bits with
-// the geometry (vector bytes ``vb``, group lanes ``G``, vectors a lane ``V``)
-// that kernels/row_group.py chose; refuses a geometry that does not tile the
-// row. ``old_scales`` is read only by the transcode formats.
-template <Src S, int DST>
-cudaError_t requant_rows(const void* src, const float* old_scales, void* dst, float* new_scales,
-                         long long rows, int hd, int vb, int G, int V, cudaStream_t stream) {
+// Calls f(vb, V) with both as std::integral_constant for a geometry that
+// tiles a row of hd elements of format S; cudaErrorInvalidValue for one that
+// does not (kernels/row_group.py chooses it: vector bytes vb, group lanes G,
+// vectors a lane V).
+template <Src S, class F>
+cudaError_t by_geometry(int hd, int vb, int G, int V, int* chunks, F&& f) {
   constexpr int PAIR = 2 * src_bits<S>() / 8;  // bytes of an element pair
   const int row_bytes = hd * src_bits<S>() / 8;
   if (hd <= 0 || hd % 2 || vb < PAIR || vb > 16 || (vb & (vb - 1)) || row_bytes % vb ||
       G < 1 || G > 32 || (G & (G - 1))) {
     return cudaErrorInvalidValue;
   }
-  const int chunks = row_bytes / vb;
-  if ((long long)G * V < chunks) return cudaErrorInvalidValue;
+  *chunks = row_bytes / vb;
+  if ((long long)G * V < *chunks) return cudaErrorInvalidValue;
+  auto vectors = [&](auto vbc) -> cudaError_t {
+    switch (V) {
+      case 1: return f(vbc, std::integral_constant<int, 1>{});
+      case 2: return f(vbc, std::integral_constant<int, 2>{});
+      case 4: return f(vbc, std::integral_constant<int, 4>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
   switch (vb) {
-    case 16: return by_vectors<S, DST, 16>(V, src, old_scales, dst, new_scales, rows, chunks, G,
-                                           stream);
+    case 16: return vectors(std::integral_constant<int, 16>{});
     case 8:
-      if constexpr (PAIR <= 8) {
-        return by_vectors<S, DST, 8>(V, src, old_scales, dst, new_scales, rows, chunks, G, stream);
-      }
+      if constexpr (PAIR <= 8) return vectors(std::integral_constant<int, 8>{});
       break;
     case 4:
-      if constexpr (PAIR <= 4) {
-        return by_vectors<S, DST, 4>(V, src, old_scales, dst, new_scales, rows, chunks, G, stream);
-      }
+      if constexpr (PAIR <= 4) return vectors(std::integral_constant<int, 4>{});
       break;
     case 2:
-      if constexpr (PAIR <= 2) {
-        return by_vectors<S, DST, 2>(V, src, old_scales, dst, new_scales, rows, chunks, G, stream);
-      }
+      if constexpr (PAIR <= 2) return vectors(std::integral_constant<int, 2>{});
       break;
     case 1:
-      if constexpr (PAIR <= 1) {
-        return by_vectors<S, DST, 1>(V, src, old_scales, dst, new_scales, rows, chunks, G, stream);
-      }
+      if constexpr (PAIR <= 1) return vectors(std::integral_constant<int, 1>{});
       break;
     default:
       break;
   }
   return cudaErrorInvalidValue;
+}
+
+inline bool misaligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % (bytes < 16 ? bytes : 16) != 0;
+}
+
+// Requantizes ``rows`` rows of head_dim ``hd`` from format S to DST bits with
+// the geometry (vb, G, V) that kernels/row_group.py chose. ``old_scales`` is
+// read only by the transcode formats; ``line_bits`` (LINES: the cxl encode,
+// 16-byte vectors, hd a multiple of 64) receives each line's stored width.
+template <Src S, int DST, bool LINES = false>
+cudaError_t requant_rows(const void* src, const float* old_scales, void* dst, float* new_scales,
+                         long long rows, int hd, int vb, int G, int V, cudaStream_t stream,
+                         int* line_bits = nullptr) {
+  int chunks = 0;
+  return by_geometry<S>(hd, vb, G, V, &chunks, [&](auto vbc, auto vc) -> cudaError_t {
+    constexpr int VB = decltype(vbc)::value, VV = decltype(vc)::value;
+    if constexpr (LINES && VB != 16) {
+      return cudaErrorInvalidValue;
+    } else {
+      using R = Rows<S, DST, VB, VV, LINES>;
+      if (misaligned(src, VB) || misaligned(dst, R::OB)) return cudaErrorMisalignedAddress;
+      R p{};
+      if constexpr (LINES) {
+        if (chunks % R::LINE_LANES || G < R::LINE_LANES) return cudaErrorInvalidValue;
+        p.line_bits = line_bits;
+      }
+      p.src = static_cast<const uint8_t*>(src);
+      p.src_scales = old_scales;
+      p.rows = rows;
+      p.chunks = chunks;
+      p.G = G;
+      p.dst = static_cast<uint8_t*>(dst);
+      p.new_scales = new_scales;
+      return launch_rows(p, stream);
+    }
+  });
+}
+
+// Dequantizes ``rows`` rows of hd int8 (S = I8) or packed int4 (I4) codes to
+// f32, or bf16 (BF16), with the geometry (vb, G, V) of
+// kernels/row_group.py's dequant_geometry.
+template <Src S, bool BF16>
+cudaError_t dequant_rows(const void* src, const float* scales, void* out, long long rows, int hd,
+                         int vb, int G, int V, cudaStream_t stream) {
+  int chunks = 0;
+  return by_geometry<S>(hd, vb, G, V, &chunks, [&](auto vbc, auto vc) -> cudaError_t {
+    using R = DequantRows<S, BF16, decltype(vbc)::value, decltype(vc)::value>;
+    if (misaligned(src, R::VBYTES) || misaligned(out, R::OB)) return cudaErrorMisalignedAddress;
+    R p{};
+    p.src = static_cast<const uint8_t*>(src);
+    p.src_scales = scales;
+    p.rows = rows;
+    p.chunks = chunks;
+    p.G = G;
+    p.out = static_cast<uint8_t*>(out);
+    return launch_rows(p, stream);
+  });
 }
 
 }  // namespace row_group

@@ -3,14 +3,17 @@ in ``csrc/cxl_line.cu``.
 
 ``cxl_encode_pages`` replaces the Pallas kernel
 ``repro/kernels/cxl_line.py::cxl_encode_pages``: the int8 quantization of
-``quant_pages(., 8)`` (payload and scales byte-equal to it) plus the stored
-width of each 64-codeword hardware line, 4 or 8 bits. ``cxl_decode_pages``
-replaces ``repro/kernels/cxl_line.py::cxl_decode_pages``: int8 times the row
-scale, in f32 (the controller decompresses inline). The cache reads HOST8
-pages that live on the ``cxl_hw`` expander through it. Both are bound by
-bytes (one pass over rows or head-dim pairs, coalesced). On a CPU tensor the
-plain versions (``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``)
-run.
+``quant_pages(., 8)`` plus the stored width of each 64-codeword hardware
+line, 4 or 8 bits. Its kernel is ``csrc/row_group.cuh``'s requantization
+step, the one ``quant_pages`` runs, with line widths added (a segmented
+shuffle over the lanes that hold a line, ``row_group.line_geometry``), so
+payload and scales equal ``quant_pages(., 8)``'s by construction; pointers
+off its 16-byte vectors raise. ``cxl_decode_pages`` replaces
+``repro/kernels/cxl_line.py::cxl_decode_pages``: int8 times the row scale,
+in f32 (the controller decompresses inline), one thread per head-dim pair.
+The cache reads HOST8 pages that live on the ``cxl_hw`` expander through
+it. Both are bound by bytes. On a CPU tensor the plain versions
+(``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``) run.
 """
 
 from __future__ import annotations
@@ -20,9 +23,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.row_group import line_geometry
 
 _P = ctypes.c_void_p
-MAX_HEAD_DIM = 256  # one warp per row, four pairs per lane
 
 
 def cxl_encode_pages(pages: torch.Tensor):
@@ -33,19 +36,21 @@ def cxl_encode_pages(pages: torch.Tensor):
         return ref.cxl_encode_kv_page(pages)
     name = "cxl_encode_pages"
     p, t, kv, hd = pages.shape
-    if hd % ref.CXL_LINE_ELEMS or hd > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {hd} must be a multiple of {ref.CXL_LINE_ELEMS} "
-                         f"and <= {MAX_HEAD_DIM}")
     dev = pages.device
     build.check_operand(name, "pages", pages, (torch.float32, torch.bfloat16), dev)
+    geo = line_geometry(hd, "bf16" if pages.dtype == torch.bfloat16 else "f32", name).row
+    build.check_aligned(name, "pages", pages, geo.vec_bytes)
     payload = torch.empty((p, t, kv, hd), dtype=torch.int8, device=dev)
     scales = torch.empty((p, t, kv), dtype=torch.float32, device=dev)
     line_bits = torch.empty((p, t, kv, hd // ref.CXL_LINE_ELEMS), dtype=torch.int32, device=dev)
+    build.check_aligned(name, "payload", payload, geo.out_align)
     fn = build.load("cxl_line").cxl_encode_pages_launch
-    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, _P]
     fn.restype = ctypes.c_int
     err = fn(pages.data_ptr(), int(pages.dtype == torch.bfloat16), payload.data_ptr(),
-             scales.data_ptr(), line_bits.data_ptr(), p * t * kv, hd, build.stream_handle(dev))
+             scales.data_ptr(), line_bits.data_ptr(), p * t * kv, hd, geo.vec_bytes, geo.lanes,
+             geo.vectors, build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(name)
     return payload, scales, line_bits

@@ -3,7 +3,10 @@
 Torch-only (the GPU host has no JAX): quant, transcode, dequant (f32 and
 bf16 out) and the cxl_hw page codec (encode: payload, scales and line widths;
 decode) byte-equal (quant and transcode also at hd 16-256, ragged row counts,
-all-zero rows and exact ties, and refusing a view off their 16-byte vectors), fused and per-pool attention within rtol = atol = 2e-4,
+all-zero rows and exact ties; dequant at every even hd 2-256; the cxl encode
+at hd 64-256 with lines at exactly 7 and 8 and ties; each row-group kernel
+refusing a view off its 16-byte vectors), fused and per-pool attention
+within rtol = atol = 2e-4,
 across the reference sweep of page shapes and head groupings (GQA included),
 mixed int8/int4/host/invalid table rows, empty pools and recent windows, and
 every kernel at the zamba2 page shape (T=16, KV=H=32, hd=64); the cache's
@@ -167,6 +170,94 @@ def test_dequant_pages_bit_equal(gen, shape, out_dtype):
         want = dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)
         assert got.dtype == out_dtype and torch.equal(got, want)
     assert build.launch_counts()["dequant_pages"] - before == 2
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequant_pages_every_head_dim(gen, bits, out_dtype):
+    """Every even head_dim 2-256 (every vector width and lane count of the
+    dequant geometry) at row counts that leave a partial last batch, codes
+    over the whole range (int8 -128 included) and scales over 2^-20 to 2^20
+    with zero rows: bit-equal to the plain version, one launch a call."""
+    for hd in range(2, 257, 2):
+        for rows in (1, 37, 1031):
+            q = torch.randint(-128 if bits == 8 else -8, 128 if bits == 8 else 8, (rows, hd),
+                              generator=gen, device="cuda", dtype=torch.int32)
+            pay = (q.to(torch.int8) if bits == 8 else
+                   ((q[:, 0::2] & 0xF) | ((q[:, 1::2] & 0xF) << 4)).to(torch.uint8))
+            sc = torch.exp2(torch.randint(-20, 20, (rows,), generator=gen, device="cuda")
+                            .float()) * torch.rand(rows, generator=gen, device="cuda")
+            sc[::4] = 0
+            pay, sc = pay.reshape(rows, 1, 1, -1), sc.reshape(rows, 1, 1)
+            before = build.launch_counts()["dequant_pages"]
+            got = dequant_page.dequant_pages(pay, sc, bits, out_dtype)
+            assert build.launch_counts()["dequant_pages"] - before == 1
+            want = dequant_page.dequant_pages_plain(pay, sc, bits, out_dtype)
+            assert got.dtype == out_dtype and torch.equal(got, want), (hd, rows)
+
+
+def test_dequant_pages_rejects_misaligned_views(gen):
+    """A contiguous, pair-aligned payload view off the vectors the geometry
+    loads (the codes of 16 output bytes: 4 B of int8 for f32, 8 B for bf16)
+    raises ValueError (no narrower path, no plain fallback)."""
+    pay, sc = quant_page.quant_pages(torch.randn((3, 16, 2, 64), generator=gen,
+                                                 device="cuda"), 8)
+    flat = torch.zeros(pay.numel() + 2, dtype=torch.int8, device="cuda")
+    view = flat[2:].view(pay.shape)
+    view.copy_(pay)
+    assert view.is_contiguous() and view.data_ptr() % 4 == 2
+    for out_dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="aligned"):
+            dequant_page.dequant_pages(view, sc, 8, out_dtype)
+
+
+def _line_pages(rows: int, hd: int) -> torch.Tensor:
+    """Rows whose scale is 2^e (element 0 is 127 * 2^e) and whose later
+    64-code lines hold, by (row + line) % 4: integers up to exactly 7 (width
+    4), integers reaching -8 (width 8), ties (k + 0.5) 2^e up to 6.5 (rounded
+    to even: max |code| 6, width 4, through exact_codes), ties up to 7.5
+    (code 8, width 8). Every third row is all zero (scale 1, width 4)."""
+    r = torch.arange(rows, device="cuda")
+    e = (r % 9 - 4).float()
+    d = torch.arange(hd, device="cuda") % 64
+    line = torch.arange(hd, device="cuda") // 64
+    kind = (r[:, None] + line[None, :]) % 4
+    ints7 = (d % 15 - 7).float()  # -7..7
+    ints8 = -((d % 9).float())  # 0..-8
+    ties6 = (d % 14 - 7).float().clamp(-7, 6) + 0.5  # -6.5..6.5
+    ties7 = (d % 16 - 8).float() + 0.5  # -7.5..7.5
+    vals = torch.stack([ints7, ints8, ties6, ties7])[kind, d[None, :].expand(rows, -1)]
+    x = vals * torch.exp2(e)[:, None]
+    x[:, 0] = 127 * torch.exp2(e)
+    x[::3] = 0
+    return x.reshape(rows, 1, 1, hd)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cxl_encode_pages_line_layout(gen, hd, dtype):
+    """Payload, scales and line widths equal the plain version's and payload
+    and scales quant_pages(., 8)'s, at row counts that are not a multiple of
+    the row groups a block holds, on random rows (some zero) and on rows
+    whose lines reach exactly 7, exactly 8 and rounding ties."""
+    for rows in (1, 7, 33, 1000, 4097):
+        x = torch.randn((rows, 1, 1, hd), generator=gen, device="cuda")
+        x *= torch.exp2(torch.randint(-8, 8, (rows, 1, 1, 1), generator=gen, device="cuda"))
+        x[:, ..., 64:] *= 0.02
+        x[::5] = 0
+        for pages in (x.to(dtype), _line_pages(rows, hd).to(dtype)):
+            before = build.launch_counts()["cxl_encode_pages"]
+            got = cxl_line.cxl_encode_pages(pages)
+            assert build.launch_counts()["cxl_encode_pages"] - before == 1
+            want = ref.cxl_encode_kv_page(pages)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (rows, hd)
+            qp, qs = quant_page.quant_pages(pages, 8)
+            assert torch.equal(got[0], qp) and torch.equal(got[1], qs), (rows, hd)
+        bits = got[2].reshape(rows, -1)
+        assert bool((bits[::3] == 4).all())  # zero rows
+        if hd > 64 and rows > 3:
+            assert bool((bits[1::3, 1:] == 4).any()) and bool((bits[1::3, 1:] == 8).any())
 
 
 @pytest.mark.parametrize("t, kv, hd", [(8, 1, 32), (16, 4, 64), (16, 2, 128), (16, 20, 128)])

@@ -10,8 +10,12 @@ and on constructed tie neighbourhoods. The kernels' geometry
 (``kernels/row_group.py``) is checked for every even head_dim the wrappers
 take, and the engine's bf16 page-out (``append_pages`` on the KV cache's own
 bf16) against the same pages upcast to f32, and against the JAX cache fed
-f32 as the reference engine does. The kernels themselves run on the card
-(``tests/test_torch_cuda.py``).
+f32 as the reference engine does. The dequant step (kernel #4) and the cxl
+encode's line widths (kernel #6) are modelled too: codes to floats by their
+bits under 2^23 and one f32 multiply, bit-equal to ``ref.dequant_kv_page``
+on every code; which lanes hold which 64-code line and the segmented max,
+equal to ``ref.cxl_encode_kv_page``'s widths. The kernels themselves run on
+the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -19,8 +23,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.row_group import SRC_BITS, row_geometry  # noqa: E402
+from repro_torch.kernels import dequant_page, ref  # noqa: E402
+from repro_torch.kernels.row_group import (SRC_BITS, dequant_geometry, line_geometry,  # noqa: E402
+                                           row_geometry)
 
 F32 = np.float32
 TIE_GUARD = F32(0.5) - F32(2.0 ** -15)
@@ -305,3 +310,175 @@ def test_append_pages_bf16_equals_f32_upcast():
             diff = (ref.dequant_kv_page(torch.from_numpy(x[i]), torch.from_numpy(x[i + 1]), bits)
                     - ref.dequant_kv_page(y[i], y[i + 1], bits)).abs()
             assert bool((diff <= step * (1 + 1e-6)).all()), r
+
+
+# -- the dequant step (kernel #4) and the cxl encode's line widths (kernel #6)
+
+@pytest.mark.parametrize("src", ["int8", "int4"])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+def test_dequant_geometry_for_every_head_dim(src, out):
+    pair = 2 * SRC_BITS[src] // 8
+    for hd in range(2, 257, 2):
+        geo = dequant_geometry(hd, src, out)
+        row_bytes = hd * SRC_BITS[src] // 8
+        vb = geo.vec_bytes
+        cap = 16 * SRC_BITS[src] // (32 if out == "f32" else 16)  # the codes of 16 B out
+        assert vb in (1, 2, 4, 8) and pair <= vb <= cap and row_bytes % vb == 0, (hd, geo)
+        assert vb == cap or row_bytes % (2 * vb), (hd, geo)  # the widest the row allows
+        assert geo.chunks == row_bytes // vb
+        assert geo.lanes in (1, 2, 4, 8, 16, 32)
+        assert geo.lanes >= min(geo.chunks, 32) and geo.lanes // 2 < geo.chunks
+        assert geo.vectors in (1, 2, 4) and geo.lanes * geo.vectors >= geo.chunks
+        assert geo.vectors == 1 or geo.lanes * geo.vectors // 2 < geo.chunks
+        assert geo.rows_per_batch * geo.vectors == 4
+        # The values a vector becomes, stored in whole 32-bit words.
+        elems = vb * 8 // SRC_BITS[src]
+        assert geo.out_bytes == elems * (4 if out == "f32" else 2)
+        assert geo.out_bytes % 4 == 0 and geo.out_align in (4, 8, 16)
+    for hd in (16, 32, 64, 128, 256):  # the serving shapes store 16-byte vectors
+        assert dequant_geometry(hd, src, out).out_bytes == 16
+    for bad in (0, 3, 258):
+        with pytest.raises(ValueError, match="head_dim"):
+            dequant_geometry(bad, src, out)
+    with pytest.raises(ValueError, match="no dequant"):
+        dequant_geometry(64, "bf16", out)
+
+
+@pytest.mark.parametrize("hd, src, out", [(128, "int4", "f32"), (64, "int4", "f32"),
+                                          (128, "int8", "bf16"), (34, "int8", "f32"),
+                                          (250, "int4", "bf16"), (2, "int8", "f32")])
+def test_dequant_thread_map_covers_each_chunk_once(hd, src, out):
+    """The dequant step runs the requantization step's thread map
+    (``rows_kernel``): each (row, chunk) is loaded and stored by exactly one
+    lane at ragged row counts and every rows-per-batch."""
+    geo = dequant_geometry(hd, src, out)
+    for rows in (1, 7, 33, 320):
+        for k in (1, 2, 4):
+            if k <= geo.rows_per_batch:
+                assert (_kernel_cover(geo, rows, k) == 1).all(), (rows, k, geo)
+
+
+def _line_widths_model(codes: np.ndarray, lg) -> np.ndarray:
+    """row_group.cuh's line widths, lane by lane: lane j of vector slot v
+    holds chunk v G + j (zeros past the chunks) and its max |code|; a
+    segmented xor-shuffle max over lanes_per_line lanes; the segment's first
+    lane stores 4 (max <= 7) or 8 for line (v G + j) // lanes_per_line, if
+    the chunk lies in the row. Returns [rows, lines] (-1 where no lane
+    stored, 2 if two did)."""
+    geo, L = lg.row, lg.lanes_per_line
+    rows = codes.shape[0]
+    per_chunk = np.abs(codes.astype(np.int32)).reshape(rows, geo.chunks, -1).max(axis=2)
+    lane_max = np.zeros((rows, geo.vectors, geo.lanes), np.int32)
+    stores = np.zeros((rows, lg.lines), np.int64)
+    for v in range(geo.vectors):
+        for j in range(geo.lanes):
+            c = v * geo.lanes + j
+            if c < geo.chunks:
+                lane_max[:, v, j] = per_chunk[:, c]
+    o = L // 2
+    while o:
+        lane_max = np.maximum(lane_max, lane_max[:, :, np.arange(geo.lanes) ^ o])
+        o //= 2
+    out = np.full((rows, lg.lines), -1, np.int64)
+    for v in range(geo.vectors):
+        for j in range(0, geo.lanes, L):
+            line = lg.line_of(v, j)
+            if line is not None:
+                out[:, line] = np.where(lane_max[:, v, j] <= 7, 4, 8)
+                stores[:, line] += 1
+    return np.where(stores == 1, out, np.where(stores == 0, -1, 2))
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+@pytest.mark.parametrize("src", ["bf16", "f32"])
+def test_cxl_line_layout_model_equals_plain_line_widths(hd, src):
+    """Which lanes hold which line and the segmented max, modelled on the
+    codes of random pages (lines narrowed by scaling, zero rows), give the
+    plain version's line widths at every head_dim the encode takes."""
+    lg = line_geometry(hd, src)
+    assert lg.lanes_per_line == (8 if src == "bf16" else 16)
+    assert lg.row.vec_bytes == 16 and lg.row.chunks % lg.lanes_per_line == 0
+    assert lg.row.lanes >= lg.lanes_per_line  # a line never leaves its row group
+    rng = np.random.default_rng(hd)
+    x = rng.standard_normal((3000, 1, 1, hd)).astype(F32)
+    narrow = rng.choice([1, 0.05, 0.02], (3000, 1, 1, hd // 64)).astype(F32).repeat(64, -1)
+    narrow[..., :64] = 1  # the first line keeps the row's amax
+    x *= narrow
+    x[::7] = 0
+    pages = torch.from_numpy(x).to(torch.bfloat16 if src == "bf16" else torch.float32)
+    payload, _, want = ref.cxl_encode_kv_page(pages)
+    got = _line_widths_model(payload.reshape(3000, hd).numpy(), lg)
+    np.testing.assert_array_equal(got, want.reshape(3000, -1).numpy())
+    assert (got == 4).any() and (got == 8).any()
+    # Lanes past the chunks (hd 192: 24 chunks of bf16 on 32 lanes, or f32's
+    # second vector slot) hold no line and store none.
+    holders = {(v, j) for v in range(lg.row.vectors) for j in range(lg.row.lanes)
+               if lg.line_of(v, j) is not None}
+    assert len(holders) == lg.row.chunks
+    for bad in (32, 320):
+        with pytest.raises(ValueError, match="multiple"):
+            line_geometry(bad, src)
+
+
+def _elements_model(codes: np.ndarray, bits: int) -> np.ndarray:
+    """row_group.cuh's Elements<I8/I4>: a code c becomes the f32 of bits
+    0x4B000000 | (c + bias) (PRMT or a nibble mask), minus 2^23 + bias."""
+    bias = 128 if bits == 8 else 8
+    raw = (codes.astype(np.int64) + bias).astype(np.uint32) | np.uint32(0x4B000000)
+    return (raw.view(F32) - F32(2 ** 23 + bias)).astype(F32)
+
+
+def _bf16_rne_model(y: np.ndarray) -> np.ndarray:
+    """__floats2bfloat162_rn: round f32 to bf16, nearest even (NaN stays
+    NaN), returned as f32."""
+    b = y.view(np.uint32).astype(np.uint64)
+    r = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16).astype(np.uint32).view(F32)
+    return np.where(np.isnan(y), F32(np.nan), r).astype(F32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_elements_model_bit_equal(bits):
+    """Every int8 code (all 256) and every int4 code (all 16, as all 256
+    packed bytes) through Elements and one f32 multiply, at 10^4 scales
+    (2^-149 to 2^127, both signs, zero, subnormal, inf), bit-equal to
+    ``ref.dequant_kv_page`` in f32 and, rounded to bf16, to its cast."""
+    rng = np.random.default_rng(16 + bits)
+    n = 10 ** 4
+    sc = (np.exp2(rng.uniform(-149, 127, n)) * rng.choice([-1, 1], n)).astype(F32)
+    sc[:6] = [0.0, -0.0, np.inf, 1e-45, 3.4e38, 1.0]
+    byte = np.arange(256, dtype=np.int64)
+    if bits == 8:
+        payload = np.tile((byte - 128).astype(np.int8), (n, 1))
+        codes = payload.astype(np.int64)
+    else:
+        payload = np.tile(byte.astype(np.uint8), (n, 1))
+        nib = np.stack([byte & 0xF, byte >> 4], -1).reshape(-1)
+        codes = np.tile(np.where(nib >= 8, nib - 16, nib), (n, 1))
+    x = _elements_model(codes, bits)
+    np.testing.assert_array_equal(x, codes.astype(F32))  # exact conversion
+    with np.errstate(all="ignore"):
+        y = (x * sc[:, None]).astype(F32)
+    want = ref.dequant_kv_page(torch.from_numpy(payload), torch.from_numpy(sc), bits)
+    np.testing.assert_array_equal(y, want.numpy())
+    np.testing.assert_array_equal(np.signbit(y), np.signbit(want.numpy()))
+    want16 = want.to(torch.bfloat16).float().numpy()
+    got16 = _bf16_rne_model(y)
+    np.testing.assert_array_equal(got16, want16)
+    np.testing.assert_array_equal(np.signbit(got16[~np.isnan(got16)]),
+                                  np.signbit(want16[~np.isnan(want16)]))
+
+
+def test_library_mul_equals_plain_dequant():
+    """The yardstick ``chip_smoke.py`` times beside int8 dequant: one
+    ``torch.mul`` of the int8 payload and the scales, into f32 by type
+    promotion or into a bf16 ``out``, is bit-equal to the plain version."""
+    rng = np.random.default_rng(5)
+    pay = torch.from_numpy(rng.integers(-128, 128, (40, 16, 4, 64)).astype(np.int8))
+    sc = torch.from_numpy((np.exp2(rng.uniform(-30, 30, (40, 16, 4))) * rng.random((40, 16, 4)))
+                          .astype(F32))
+    f32 = torch.mul(pay, sc[..., None])
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32, dequant_page.dequant_pages_plain(pay, sc, 8, torch.float32))
+    bf16 = torch.empty(pay.shape, dtype=torch.bfloat16)
+    torch.mul(pay, sc[..., None], out=bf16)
+    assert torch.equal(bf16, dequant_page.dequant_pages_plain(pay, sc, 8, torch.bfloat16))
