@@ -1,19 +1,30 @@
 """GPU smoke of the PyTorch/CUDA port: builds the kernels, holds each against
 its plain version, and drives the tiered serving loop on one GPU at the full
-width of ``qwen1_5_4b`` (serially and on the default async media path) and
-of ``zamba2_1_2b`` (the hybrid family, host tiers on the ``cxl_hw``
-expander).
+width of ``qwen1_5_4b`` (serially and on the default async media path), of
+``qwen3_32b`` (GQA with qk-norm, at reduced depth) and of ``zamba2_1_2b``
+(the hybrid family, host tiers on the ``cxl_hw`` expander), and takes one
+tiered decode step of ``internlm2_20b`` and ``command_r_35b``.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
 Phases (any failure exits non-zero before the result line):
   1. print the card's name and power limit, build the six CUDA sources
      (seven kernels; one ``nvcc`` per source, all started together);
-  2. each kernel vs its plain version on the card at both serving paths'
-     full-width page shapes (T=16; KV=20, hd=128 and KV=32, hd=64;
-     quant/transcode/dequant/cxl encode/cxl decode byte-equal, fused and
-     per-pool attention within 2e-4, the per-pool one with an empty pool and
-     tails past ``n_pages``);
+  2. each kernel vs its plain version on the card at the serving paths'
+     full-width page shapes (T=16; KV=20, hd=128; KV=32, hd=64; and the GQA
+     shape KV=8, hd=128 with H=64 (qwen3_32b, command_r_35b) and H=48
+     (internlm2_20b); quant/transcode/dequant/cxl encode/cxl decode
+     byte-equal, fused and per-pool attention within 2e-4, the per-pool one
+     with an empty pool and tails past ``n_pages``);
+  2b. ``internlm2_20b`` (group 6) and ``command_r_35b`` (group 8, tied 256k
+     head) at full width and depth 4: prefill of one 500-token prompt, a few
+     tiered decode steps through the fused kernel, and one kernel-branch
+     step against the plain branch at phase 4's bars;
+  2c. ``qwen3_32b`` at full width (qk-norm, 64 heads on 8 KV heads) and 32
+     of its 64 layers (full depth is ~65.5 GB of bf16 weights beside ~18 GB
+     of class buffers), random bf16 weights from a seed: phase 3's default
+     path and its checks, phase 4's compares and phase 5's timings at its
+     shapes; the engine stays resident for its profile;
   3. the full-width engine (40 layers, random bf16 weights from a seed)
      serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
      first with serial migration (the blocking executor; at policy weight
@@ -54,6 +65,8 @@ Phases (any failure exits non-zero before the result line):
      5's timings are taken again at this run's shapes (hd=64);
   7. a profile of one decode step of each engine, last: once the profiler
      has run, every later launch costs more host time.
+The engines that stay resident for the profiles are counted out of the peak
+memory of the runs that follow them.
 Media busy seconds in the engine are modeled time from the catalog's
 parameters, not measurements of this card; they are not printed.
 The ``kernels`` line lists all seven kernels (launches from the main-path
@@ -104,7 +117,13 @@ MODES_LAYERS = 4  # depth of the phase-3b executor comparison
 NEW_TOKENS = 48
 # Prompt lengths per arch: the hybrid prefill scans the prompt one recurrent
 # step per token (host-bound in eager PyTorch), so its prompts are shorter.
-PROMPTS = {"qwen1_5_4b": (400, 601), "zamba2_1_2b": (200, 301)}
+PROMPTS = {"qwen1_5_4b": (400, 601), "qwen3_32b": (400, 601), "zamba2_1_2b": (200, 301)}
+# qwen3_32b at full depth: 64 x 0.975 GB of bf16 layer weights + 3.1 GB of
+# embedding and head, beside class buffers that hold every layer's rows in
+# each layer's slice (~18 GB at 64 layers): more than one 80 GB card.
+QWEN3_LAYERS = 32
+ONE_STEP_ARCHS = ("internlm2_20b", "command_r_35b")
+ONE_STEP_LAYERS, ONE_STEP_PROMPT, ONE_STEP_DECODE = 4, 500, 4
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of SM clock: the spin before each timed call
 HOST8_FORCED_PAGES = 32  # pages driven to HOST8 if the policy leaves it empty
 REPLACES = {
@@ -644,7 +663,9 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
                             async_migration=True, prefetch=True, faults=False,
                             host_media_device=host_media_device)
     cxl = host_media_device == "cxl_hw"
-    what = f"{cfg.name} async" + (" on cxl_hw" if cxl else "")
+    full = get(cfg.name).n_layers
+    what = (f"{cfg.name} async" + (f" at {cfg.n_layers} of {full} layers" if cfg.n_layers != full
+                                   else "") + (" on cxl_hw" if cxl else ""))
     log(f"phase {phase} ({what}): alpha {ts.alpha}, async_migration {ts.async_migration}, "
         f"prefetch {ts.prefetch}")
     torch.cuda.reset_peak_memory_stats()
@@ -747,6 +768,7 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
     metrics["generated_tokens"] -= pp_tokens
     metrics["tokens_per_s"] = metrics["generated_tokens"] / wall
     metrics["alpha"] = ts.alpha
+    metrics["layers"] = cfg.n_layers
     metrics["prefetch_invalidated"] = invalidated
     metrics["per_pool"] = {"steps": PER_POOL_STEPS, "decode_ms_per_step":
                            pp_decode / PER_POOL_STEPS * 1e3, "wall_s": pp_wall}
@@ -1183,6 +1205,65 @@ def phase_profile(eng, state) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 2b-2c
+def phase_one_step(name: str) -> dict:
+    """Full width at depth ``ONE_STEP_LAYERS`` on the default path: prefill
+    of one ``ONE_STEP_PROMPT``-token prompt, ``ONE_STEP_DECODE`` tiered
+    decode steps (one fused launch a layer), then one kernel-branch step
+    against the plain branch at phase 4's bars. Frees the engine after."""
+    cfg = dataclasses.replace(get(name), n_layers=ONE_STEP_LAYERS)
+    model, params = init_params(cfg)
+    ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
+                            async_migration=True, prefetch=True, faults=False)
+    eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                       recent_window=R, ts=ts, device=DEV)
+    req = eng.submit(np.random.default_rng(SEED).integers(1, cfg.vocab_size, ONE_STEP_PROMPT),
+                     max_new_tokens=NEW_TOKENS)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng._fill_slots()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(ONE_STEP_DECODE):
+        eng.step()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 - prefill_ms
+    counts = build.launch_counts()
+    if (counts["fused_tiered_attention"] != eng.la * ONE_STEP_DECODE or counts["quant_pages"] < 1
+            or len(req.out_tokens) != 1 + ONE_STEP_DECODE):
+        fail(f"{name}: {len(req.out_tokens)} tokens, launches {counts}; expected "
+             f"{1 + ONE_STEP_DECODE} tokens, {eng.la} x {ONE_STEP_DECODE} fused launches and "
+             "a page-out through quant_pages")
+    out = {"layers": cfg.n_layers, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "prompt_tokens": ONE_STEP_PROMPT, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms / ONE_STEP_DECODE, "launches": counts,
+           "step_compare": step_compare(eng)}
+    log(f"phase 2b ok ({name} at {cfg.n_layers} of {get(name).n_layers} layers, full width): "
+        f"{json.dumps(out)}")
+    del eng, model, params, req
+    free_device()
+    return out
+
+
+def reckon_memory(cfg, params, eng) -> dict:
+    """Bytes of this run's weights and tiered KV state, from their sizes, and
+    what full depth would need: layer weights scale with depth, the class
+    buffers with its square (each layer's slice holds every layer's rows)."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    st = eng.cache.state
+    kv = sum(t.numel() * t.element_size() for t in (getattr(st, f.name)
+                                                    for f in dataclasses.fields(st))
+             if isinstance(t, torch.Tensor))
+    blocks = nbytes(params["blocks"])
+    rest = nbytes(params) - blocks
+    scale = get(cfg.name).n_layers / cfg.n_layers
+    return {"weights_bytes": blocks + rest, "kv_state_bytes": kv,
+            "full_depth_weights_bytes": int(blocks * scale + rest),
+            "full_depth_kv_state_bytes": int(kv * scale * scale)}
+
+
 def init_params(cfg):
     model = Model(cfg, device=DEV)
     t0 = time.perf_counter()
@@ -1207,13 +1288,35 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     cfg, zcfg = get("qwen1_5_4b"), get("zamba2_1_2b")
+    q3cfg = dataclasses.replace(get("qwen3_32b"), n_layers=QWEN3_LAYERS)
     smi = phase_build()
     errs = phase_compare(cfg)
     zerrs = phase_compare(zcfg)
     for name in ("cxl_encode_pages", "cxl_decode_pages"):
         zerrs[name] = max(zerrs[name], errs[name])
+    # The GQA page shape [., 16, 8, 128] at H=64 (qwen3_32b, command_r_35b)
+    # and H=48 (internlm2_20b).
+    q3errs = phase_compare(q3cfg)
+    for name, e in phase_compare(get("internlm2_20b")).items():
+        q3errs[name] = max(q3errs[name], e)
 
-    # qwen1_5_4b: the dense path, serial and async (phases 3-5).
+    # The GQA archs first, on an empty card (phases 2b and 2c).
+    one_step = {name: phase_one_step(name) for name in ONE_STEP_ARCHS}
+    q3model, q3params = init_params(q3cfg)
+    (q3eng, q3counts, q3pp_counts, q3metrics, q3spies, q3state, q3compares,
+     _) = phase_async(q3cfg, q3model, q3params, phase="2c")
+    q3metrics["reckoned"] = reckon_memory(q3cfg, q3params, q3eng)
+    log(f"phase 2c memory (qwen3_32b at {QWEN3_LAYERS} of {get('qwen3_32b').n_layers} layers): "
+        f"reckoned {json.dumps(q3metrics['reckoned'])}, measured peak "
+        f"{q3metrics['peak_memory_bytes']} bytes on a card of "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes")
+    q3rows = {k["name"]: k for k in phase_times(q3eng, q3counts, q3pp_counts, q3spies, q3state,
+                                                 q3errs)}
+    free_device()
+
+    # qwen1_5_4b: the dense path, serial and async (phases 3-5), with the
+    # qwen3_32b engine resident (counted out of its peak memory).
+    held = torch.cuda.memory_allocated()
     model, params = init_params(cfg)
     serial_metrics, serial_counts, serial_step = phase_serial(cfg, model, params)
     free_device()
@@ -1221,12 +1324,15 @@ def main() -> int:
     free_device()
     eng, counts, pp_counts, async_metrics, spies, state, compares, _ = phase_async(
         cfg, model, params)
+    for m in (serial_metrics, same_alpha, async_metrics):
+        m["peak_memory_bytes"] -= held
+        m["peak_memory_note"] = "above the qwen3_32b engine left resident"
     modes = phase_modes(cfg)
     kernels = phase_times(eng, counts, pp_counts, spies, state, errs)
     free_device()
 
     # zamba2_1_2b: the hybrid path with its host tiers on cxl_hw (phase 6).
-    # The qwen engine stays resident for the profiles, which come last (the
+    # The engines stay resident for the profiles, which come last (the
     # profiler's tracing is not to touch any timed run), so the zamba2 run's
     # peak memory is counted above what is allocated before its weights.
     held = torch.cuda.memory_allocated()
@@ -1234,29 +1340,36 @@ def main() -> int:
     zeng, zcounts, zpp_counts, zmetrics, zspies, zstate, zcompares, encoder = phase_async(
         zcfg, zmodel, zparams, host_media_device="cxl_hw", phase="6")
     zmetrics["peak_memory_bytes"] -= held
-    zmetrics["peak_memory_note"] = "above the qwen1_5_4b engine left resident"
+    zmetrics["peak_memory_note"] = "above the qwen3_32b and qwen1_5_4b engines left resident"
     zrows = {k["name"]: k for k in phase_times(zeng, zcounts, zpp_counts, zspies, zstate,
                                                 zerrs, encoder)}
     prof = phase_profile(eng, state)
     zprof = phase_profile(zeng, zstate)
-    # Kernels 1-5 carry their hd=64 (zamba2) numbers beside the hd=128
-    # (qwen) ones; 6-7 run only on the zamba2 path.
+    q3prof = phase_profile(q3eng, q3state)
+    # Kernels 1-5 carry their hd=64 (zamba2) and qwen3_32b numbers beside the
+    # hd=128 (qwen1_5_4b) ones; 6-7 run only on the zamba2 path.
+    fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "shape", "floor_ms", "f32", "int8")
     for k in kernels:
-        z = zrows.pop(k["name"])
-        k["at_hd64"] = {f: z[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape", "floor_ms", "f32", "int8")
-                        if f in z}
+        for key, rows in (("at_hd64", zrows), ("at_qwen3_32b", q3rows)):
+            z = rows.pop(k["name"])
+            k[key] = {f: z[f] for f in fields if f in z}
     kernels += list(zrows.values())
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,
-                                            "zamba2_cxl_hw": zmetrics},
+                                            "zamba2_cxl_hw": zmetrics,
+                                            "qwen3_32b": q3metrics},
                     "launches": {"async": counts, "per_pool": pp_counts,
                                  "serial": serial_counts, "zamba2_cxl_hw": zcounts,
-                                 "zamba2_per_pool": zpp_counts},
+                                 "zamba2_per_pool": zpp_counts, "qwen3_32b": q3counts,
+                                 "qwen3_32b_per_pool": q3pp_counts},
                     "step_compare": {"serial": serial_step, **compares,
-                                     **{f"zamba2_{k}": v for k, v in zcompares.items()}},
+                                     **{f"zamba2_{k}": v for k, v in zcompares.items()},
+                                     **{f"qwen3_32b_{k}": v for k, v in q3compares.items()}},
+                    "one_step": one_step,
                     "modes": modes, "decode_step_profile": prof,
                     "zamba2_decode_step_profile": zprof,
+                    "qwen3_32b_decode_step_profile": q3prof,
                     "smoke_wall_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

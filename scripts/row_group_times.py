@@ -1,7 +1,7 @@
 """Device times of the row-group kernels (#2 ``quant_pages``, #3
-``transcode_pages``, #4 ``dequant_pages``, #6 ``cxl_encode_pages``) at the
-serving runs' shapes, on a GPU, for one copy of the port's package, so that
-two trees can be compared in one call.
+``transcode_pages``, #4 ``dequant_pages``, #6 ``cxl_encode_pages``, #7
+``cxl_decode_pages``) at the serving runs' shapes, on a GPU, for one copy of
+the port's package, so that two trees can be compared in one call.
 
     python scripts/row_group_times.py                       # this checkout
     python scripts/row_group_times.py --src OTHER/src --label parent
@@ -16,13 +16,15 @@ shapes are the largest calls of ``chip_smoke.py``'s runs: transcode cohorts
 (2720, 16, 20, 128) and (224, 16, 32, 64) in bf16 and in f32, dequant
 payloads (32, 16, 20, 64) and (11, 16, 32, 32) int4 -> f32 and the int8
 batch (``DEQUANT_INT8``) in f32 and bf16, each int8 one beside one
-``torch.mul``, and the cxl encode of (32, 16, 32, 64) pages in bf16 and f32,
-all through the wrappers, so each tree is timed at the geometry it ships.
-Where the package has ``quant_page.empty_launch`` an empty one-block launch is timed
-too, as the floor of a small launch. ``--sweep`` adds quant (bf16 -> int8)
-and transcode (int8 -> int4) at 1/4x to 4x those row counts. Prints one JSON
-line (and writes it to ``build/row_group_times/<label>.json``), with the
-card's name and power limit.
+``torch.mul``, the cxl encode of (32, 16, 32, 64) pages in bf16 and f32,
+and the cxl decode (int8 -> f32) of (19, 16, 32, 64) and (32, 16, 20, 128)
+payloads beside one ``torch.mul``, all through the wrappers, so each tree is
+timed at the geometry it ships. Where the package has
+``quant_page.empty_launch`` an empty one-block launch is timed too, as the
+floor of a small launch. ``--sweep`` adds quant (bf16 -> int8) and transcode
+(int8 -> int4) at 1/4x to 4x those row counts. Prints one JSON line (and
+writes it to ``build/row_group_times/<label>.json``), with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ TRANSCODE = {"hd128": (160, 16, 20, 128), "hd64": (64, 16, 32, 64)}
 DEQUANT_INT4 = {"hd128": (32, 16, 20, 64), "hd64": (11, 16, 32, 32)}  # payload shapes
 DEQUANT_INT8 = (32, 16, 20, 128)
 CXL_ENCODE = (32, 16, 32, 64)
+CXL_DECODE = {"hd64": (19, 16, 32, 64), "hd128": (32, 16, 20, 128)}
 SWEEP = (0.25, 0.5, 1, 2, 4)
 
 
@@ -65,7 +68,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"label": args.label, "src": args.src, "card": card,
-           "quant": {}, "transcode": {}, "dequant": {}, "cxl_encode": {}}
+           "quant": {}, "transcode": {}, "dequant": {}, "cxl_encode": {}, "cxl_decode": {}}
     if hasattr(quant_page, "empty_launch"):
         out["floor_ms"] = cs.time_ms(lambda: quant_page.empty_launch("cuda"))
 
@@ -125,6 +128,19 @@ def main() -> int:
         return {"ms": cs.time_ms(lambda: cxl_line.cxl_encode_pages(pages)), "bound_ms": bound,
                 "shape": list(shape), "dtype": str(dtype)}
 
+    def cxl_decode_row(shape):
+        pay, sc = ref.quant_kv_page(torch.randn(shape, generator=g, device="cuda"), 8)
+
+        def call():
+            return cxl_line.cxl_decode_pages(pay, sc)
+
+        if not torch.equal(call(), ref.cxl_decode_kv_page(pay, sc)):
+            raise SystemExit(f"cxl_decode_pages {shape}: differs from the plain version")
+        n = pay.numel()
+        bound, _ = cs.bound_ms(n + sc.numel() * 4 + n * 4, n)
+        return {"ms": cs.time_ms(call), "bound_ms": bound, "shape": list(shape),
+                "library_ms": cs.time_ms(cs.library_dequant(pay, sc, 8, torch.float32))}
+
     for key, shape in QUANT.items():
         out["quant"][key] = {"bf16": quant_row(shape, torch.bfloat16),
                              "f32": quant_row(shape, torch.float32)}
@@ -138,6 +154,7 @@ def main() -> int:
                               "bf16": dequant_row(DEQUANT_INT8, 8, torch.bfloat16)}
     out["cxl_encode"] = {"bf16": cxl_encode_row(CXL_ENCODE, torch.bfloat16),
                          "f32": cxl_encode_row(CXL_ENCODE, torch.float32)}
+    out["cxl_decode"] = {key: cxl_decode_row(shape) for key, shape in CXL_DECODE.items()}
     if args.sweep:
         out["sweep"] = {"quant_bf16": {}, "transcode_8to4": {}}
         for key in QUANT:

@@ -3,8 +3,9 @@
 // int4 rows, dequantized with their old scale first) and cxl_line.cu's
 // encode (f32/bf16 rows -> int8, plus the stored width of each 64-code
 // hardware line: LINES). Dequantization: dequant_page.cu (int8/int4 rows ->
-// f32/bf16). One kernel template over both steps (rows_kernel), one
-// instantiation per (step, formats, vector width, vectors per lane).
+// f32/bf16) and cxl_line.cu's decode (int8 -> f32). One kernel template over
+// both steps (rows_kernel), one instantiation per (step, formats, vector
+// width, vectors per lane).
 //
 // A row is one (page, token, kv-head) vector of head_dim values; its bytes
 // are cut into C chunks of VB bytes (VB = 16 where the row allows it, else
@@ -65,14 +66,15 @@
 // the zeros its buffers hold, and only its stores are skipped. Payload and
 // scales are those of quant_pages(., 8) by construction.
 //
-// Dequantization (DequantRows, dequant_page.cu): the same loads, rows in
-// flight and grid; each code becomes its exact float (Elements) times the
-// row's scale by __fmul_rn, f32 or __floats2bfloat162_rn, so the output is
-// the plain version's q.float() * scale (.to(bf16)) bit for bit. No
-// shuffle. Bound: bytes, mostly stores (int4 -> f32 writes 8x what it
-// reads), so its vectors are cut by the output: a lane's source vector is
-// the codes of 16 output bytes (2 B of int4 -> f32 up to 8 B of int8 ->
-// bf16), and the lanes of a group store neighbouring 16-byte vectors.
+// Dequantization (DequantRows; dequant_page.cu, cxl_line.cu's decode): the
+// same loads, rows in flight and grid; each code becomes its exact float
+// (Elements) times the row's scale by __fmul_rn, f32 or
+// __floats2bfloat162_rn, so the output is the plain version's q.float() *
+// scale (.to(bf16)) bit for bit. No shuffle. Bound: bytes, mostly stores
+// (int4 -> f32 writes 8x what it reads), so its vectors are cut by the
+// output: a lane's source vector is the codes of 16 output bytes (2 B of int4
+// -> f32 up to 8 B of int8 -> bf16), and the lanes of a group store
+// neighbouring 16-byte vectors.
 #pragma once
 
 #include <cuda_bf16.h>

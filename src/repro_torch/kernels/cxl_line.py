@@ -10,10 +10,12 @@ shuffle over the lanes that hold a line, ``row_group.line_geometry``), so
 payload and scales equal ``quant_pages(., 8)``'s by construction; pointers
 off its 16-byte vectors raise. ``cxl_decode_pages`` replaces
 ``repro/kernels/cxl_line.py::cxl_decode_pages``: int8 times the row scale,
-in f32 (the controller decompresses inline), one thread per head-dim pair.
-The cache reads HOST8 pages that live on the ``cxl_hw`` expander through
-it. Both are bound by bytes. On a CPU tensor the plain versions
-(``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``) run.
+in f32 (the controller decompresses inline). Its kernel is the row-group
+dequant step at int8 -> f32, the one ``dequant_pages`` runs
+(``row_group.dequant_geometry``: every even head_dim <= 256; pointers off
+its vectors raise). The cache reads HOST8 pages that live on the ``cxl_hw``
+expander through it. Both are bound by bytes. On a CPU tensor the plain
+versions (``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``) run.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.row_group import line_geometry
+from repro_torch.kernels.row_group import dequant_geometry, line_geometry
 
 _P = ctypes.c_void_p
 
@@ -63,17 +65,19 @@ def cxl_decode_pages(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
         return ref.cxl_decode_kv_page(payload, scales)
     name = "cxl_decode_pages"
     p, t, kv, hd = payload.shape
-    if hd % 2:
-        raise ValueError(f"{name}: head_dim {hd} must be even")
+    geo = dequant_geometry(hd, "int8", "f32", name)
     dev = payload.device
     build.check_operand(name, "payload", payload, torch.int8, dev)
     build.check_operand(name, "scales", scales, torch.float32, dev, (p, t, kv))
+    build.check_aligned(name, "payload", payload, geo.vec_bytes)
     out = torch.empty((p, t, kv, hd), dtype=torch.float32, device=dev)
+    build.check_aligned(name, "out", out, geo.out_align)
     fn = build.load("cxl_line").cxl_decode_pages_launch
-    fn.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+    fn.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P]
     fn.restype = ctypes.c_int
     err = fn(payload.data_ptr(), scales.data_ptr(), out.data_ptr(), p * t * kv, hd,
-             build.stream_handle(dev))
+             geo.vec_bytes, geo.lanes, geo.vectors, build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(name)
     return out

@@ -1,6 +1,7 @@
 """Geometry of the row-group kernels (``csrc/row_group.cuh``): the
 requantization step run by ``quant_pages``, ``transcode_pages`` and
-``cxl_encode_pages``, and the dequantization step run by ``dequant_pages``.
+``cxl_encode_pages``, and the dequantization step run by ``dequant_pages``
+and ``cxl_decode_pages``.
 
 A row is one (page, token, kv-head) vector of ``head_dim`` values. Its bytes
 are cut into ``chunks`` vectors of ``vec_bytes`` each: 16 where the row

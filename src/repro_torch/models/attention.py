@@ -1,5 +1,6 @@
 """Attention for the dense decoder, after ``repro.models.attention``:
-MHA/GQA with QKV biases and RoPE, full (prefill) and cached-decode modes.
+MHA/GQA with QKV biases, per-head q/k RMSNorm (qk-norm) and RoPE, full
+(prefill) and cached-decode modes.
 
 The projections and prefill attention are plain large products, left to
 ``torch`` as the JAX package leaves them to XLA. Tiered decode attention is
@@ -26,7 +27,9 @@ KV_BLOCK = 1024
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
                      dtype=torch.bfloat16, device="cpu") -> dict:
     """Attention weights with leading dims ``lead`` (the layer stack), in
-    the reference layouts: wq [D, H, hd], wk/wv [D, KV, hd], wo [H, hd, D]."""
+    the reference layouts: wq [D, H, hd], wk/wv [D, KV, hd], wo [H, hd, D];
+    with qk-norm, f32 q_norm/k_norm [hd] (ones, as the reference inits
+    them)."""
     hd = cfg.head_dim_()
     lead = tuple(lead)
     ax = len(lead)
@@ -47,17 +50,24 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
         p["bv"] = torch.zeros(lead + (cfg.n_kv_heads, hd), dtype=dtype, device=device)
     if cfg.attn_out_bias:
         p["bo"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=torch.float32, device=device)
     return p
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> q [B,S,H,hd], k/v [B,S,KV,hd] with rope applied."""
+    """x: [B, S, D] -> q [B,S,H,hd], k/v [B,S,KV,hd]: biases, then qk-norm
+    (per head, over hd), then rope on q and k."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

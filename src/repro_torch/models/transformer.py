@@ -91,12 +91,12 @@ def layer_params(tree, li: int):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense and hybrid families with RMSNorm and 1-D
-    RoPE; every other flavor raises instead of running something else."""
+    """The port serves the dense and hybrid families with RMSNorm (qk-norm
+    included) and 1-D RoPE; every other flavor raises instead of running
+    something else."""
     unported = {
         "family": cfg.family not in ("dense", "hybrid"),
         "norm": cfg.norm != "rmsnorm",
-        "qk_norm": cfg.qk_norm,
         "mrope": cfg.mrope,
         "frontend": cfg.frontend is not None,
     }

@@ -363,6 +363,41 @@ def test_cxl_decode_pages_bit_equal(gen, shape):
     assert torch.equal(got, dequant_page.dequant_pages(pay, sc, 8, torch.float32))
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cxl_decode_pages_edge_codes(gen, hd):
+    """The row-group dequant step at int8 -> f32, at the head dims the cxl
+    codec takes: ragged row counts, all-zero rows, codes +-127 and -128,
+    scales over 2^-20 to 2^20 and 0; byte-equal to the plain version and to
+    ``dequant_pages``, one launch a call."""
+    for rows in (1, 37, 1031):
+        q = torch.randint(-128, 128, (rows, hd), generator=gen, device="cuda", dtype=torch.int32)
+        q[:, 0], q[:, 1], q[:, -1] = 127, -127, -128
+        q[::5] = 0
+        sc = torch.exp2(torch.randint(-20, 20, (rows,), generator=gen, device="cuda")
+                        .float()) * torch.rand(rows, generator=gen, device="cuda")
+        sc[::4] = 0
+        sc[::5] = 1  # an all-zero row's scale, as quant gives it
+        pay, sc = q.to(torch.int8).reshape(rows, 1, 1, hd), sc.reshape(rows, 1, 1)
+        before = build.launch_counts()["cxl_decode_pages"]
+        got = cxl_line.cxl_decode_pages(pay, sc)
+        assert build.launch_counts()["cxl_decode_pages"] - before == 1
+        assert got.dtype == torch.float32 and torch.equal(got, ref.cxl_decode_kv_page(pay, sc))
+        assert torch.equal(got, dequant_page.dequant_pages(pay, sc, 8, torch.float32)), rows
+
+
+def test_cxl_decode_pages_rejects_misaligned_views(gen):
+    """A contiguous, pair-aligned payload view off the 4-byte code vectors
+    of the dequant geometry raises ValueError (no narrower path)."""
+    pay, sc = quant_page.quant_pages(torch.randn((3, 16, 2, 64), generator=gen,
+                                                 device="cuda"), 8)
+    flat = torch.zeros(pay.numel() + 2, dtype=torch.int8, device="cuda")
+    view = flat[2:].view(pay.shape)
+    view.copy_(pay)
+    assert view.is_contiguous() and view.data_ptr() % 4 == 2
+    with pytest.raises(ValueError, match="aligned"):
+        cxl_line.cxl_decode_pages(view, sc)
+
+
 def test_kernels_at_zamba2_width(gen):
     """Every kernel at the zamba2 page shape [., 16, 32, 64] with H = KV =
     32 (the attention kernels' split block: 32 heads x 4 chunks of 16 values
@@ -485,11 +520,13 @@ def test_split_attention_long_tables(gen, b, t, kv, h, hd):
     assert pa.LAST_CLUSTER["paged_quant_attention"] >= 1
 
 
-@pytest.mark.parametrize("case", ["empty_stripes", "all_host", "recent_len_zero", "gqa"])
+@pytest.mark.parametrize("case", ["empty_stripes", "all_host", "recent_len_zero", "gqa",
+                                  "gqa6"])
 def test_split_attention_edges(gen, case):
     """Ranks with no work (3 valid rows over a 96-column table), a sequence
     that sees host sentinels only, an empty recent window, and GQA with
-    H = 64, KV = 8."""
+    H = 64, KV = 8 (qwen3_32b, command_r_35b) and H = 48, KV = 8
+    (internlm2_20b)."""
     t, kv, h, hd, b = 16, 20, 20, 128, 2
     n_valid, rlen = [(20, 30, 6), (3, 32, 12)], [32, 5]
     if case == "empty_stripes":
@@ -499,7 +536,7 @@ def test_split_attention_edges(gen, case):
     elif case == "recent_len_zero":
         rlen = [0, 0]
     else:
-        kv, h = 8, 64
+        kv, h = 8, 64 if case == "gqa" else 48
     _assert_split_matches(_split_operands(gen, b, t, kv, h, hd, 96, n_valid, rlen))
 
 

@@ -358,6 +358,35 @@ def test_dequant_thread_map_covers_each_chunk_once(hd, src, out):
                 assert (_kernel_cover(geo, rows, k) == 1).all(), (rows, k, geo)
 
 
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_dequant_geometry_at_the_cxl_decode_shapes(hd):
+    """Kernel #7 ``cxl_decode_pages`` runs the dequant step at int8 -> f32
+    on the cxl codec's head dims (multiples of 64; the cache passes 64 or
+    128): a lane loads 4 codes and stores 16 bytes, a row group covers a
+    row, each (row, chunk) is touched once at the zamba2 run's largest HOST8
+    read (19 x 16 x 32 rows), and each warp-wide store writes contiguous
+    bytes, 512 of them where the row fills its lanes' vectors."""
+    geo = dequant_geometry(hd, "int8", "f32", "cxl_decode_pages")
+    assert (geo.vec_bytes, geo.out_bytes, geo.out_align) == (4, 16, 16)
+    assert geo.chunks == hd // 4 and geo.lanes == min(hd // 4, 32)
+    assert geo.lanes * geo.vectors >= geo.chunks and geo.rows_per_batch * geo.vectors == 4
+    rows, groups = 19 * 16 * 32, 256 // geo.lanes
+    for k in (1, 2, 4):
+        if k > geo.rows_per_batch:
+            continue
+        assert (_kernel_cover(geo, rows, k) == 1).all(), k
+        for warp in range(256 // 32):
+            lane = np.arange(32) + 32 * warp
+            g, j = lane // geo.lanes, lane % geo.lanes
+            for kk in range(k):
+                for v in range(geo.vectors):
+                    chunk = v * geo.lanes + j
+                    ok = chunk < geo.chunks
+                    off = np.sort(((kk * groups + g) * geo.chunks + chunk)[ok] * geo.out_bytes)
+                    assert (np.diff(off) == geo.out_bytes).all(), (k, warp, kk, v)
+                    assert off.size * geo.out_bytes == 512 or geo.chunks % 32, (k, warp, kk, v)
+
+
 def _line_widths_model(codes: np.ndarray, lg) -> np.ndarray:
     """row_group.cuh's line widths, lane by lane: lane j of vector slot v
     holds chunk v G + j (zeros past the chunks) and its max |code|; a
