@@ -2,8 +2,11 @@
 its plain version, and drives the tiered serving loop on one GPU at the full
 width of ``qwen1_5_4b`` (serially and on the default async media path), of
 ``qwen3_32b`` (GQA with qk-norm, at reduced depth) and of ``zamba2_1_2b``
-(the hybrid family, host tiers on the ``cxl_hw`` expander), and takes one
-tiered decode step of ``internlm2_20b`` and ``command_r_35b``.
+(the hybrid family, host tiers on the ``cxl_hw`` expander), takes one
+tiered decode step of ``internlm2_20b`` and ``command_r_35b``, runs the
+pure-SSM ``mamba2_780m``, preempts and resumes a ``qwen1_5_4b`` request
+through the host tier, and serves a burst trace through the SLA-aware
+frontend over two ``qwen1_5_4b`` replicas, one of which fails.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
@@ -25,6 +28,33 @@ Phases (any failure exits non-zero before the result line):
      of class buffers), random bf16 weights from a seed: phase 3's default
      path and its checks, phase 4's compares and phase 5's timings at its
      shapes; the engine stays resident for its profile;
+  2d. ``mamba2_780m`` at full width (48 SSD layers, d_model 1536, random
+     bf16 weights): a batch of 2 prompts of 64-128 tokens (cut: the
+     recurrent prefill runs one 48-layer decode step per token) through
+     ``Model.prefill`` and 16 greedy decode steps, timed in bf16, then in
+     f32 with the same weights, where the decode logits are held to the
+     parallel forward over the same tokens within 0.15 (in bf16 both
+     packages drift past that bar with depth, ``scripts/mamba2_drift.py``;
+     reported); the tiered engine
+     must refuse it;
+  2e. preemption to the host tier at ``qwen1_5_4b``'s full width (the
+     smoke's geometry, a profile window longer than the run): a 400-token
+     request preempted after 5 steps, another request churning the vacated
+     slot, a resume into the other slot: tokens bit-identical to an
+     uninterrupted run, the resumed slot's table rows in its order, zero
+     re-prefilled tokens, every parked page resumed, and the demotion billed
+     (media queues, kernel dispatches) like a plain pipeline demotion of the
+     same pages; prints the host-clock ms of ``preempt_slot`` and
+     ``resume_into``;
+  2f. ``ContinuousScheduler`` over two full-width ``qwen1_5_4b`` replicas
+     sharing one set of weights, on the default path, serving a burst trace
+     (64 steps, two SLA classes, interactive bursts) with 64-token prefill
+     chunks while replica 0 hard-fails at step 40: every arrival done or
+     refused, every done request with its full token count at TBT >= 1, zero
+     re-prefill, preemptions, resumes and a failover park; prints the
+     summary per class (TTFT/TBT in virtual steps), wall time, ms per
+     virtual step and TCO savings per replica. Phases 2e and 2f count their
+     launches from 0 and hold them to the cache's calls;
   3. the full-width engine (40 layers, random bf16 weights from a seed)
      serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
      first with serial migration (the blocking executor; at policy weight
@@ -70,7 +100,8 @@ memory of the runs that follow them.
 Media busy seconds in the engine are modeled time from the catalog's
 parameters, not measurements of this card; they are not printed.
 The ``kernels`` line lists all seven kernels (launches from the main-path
-run that drives each). The last line is the JSON result
+run that drives each, and from the preemption and frontend runs as
+``preempt_launches``/``frontend_launches``). The last line is the JSON result
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,6 +123,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import TierScapeRunConfig, get  # noqa: E402
 from repro_torch.core.manager import ManagerConfig  # noqa: E402
+from repro_torch.frontend import ContinuousScheduler, TraceConfig, generate  # noqa: E402
 from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -126,6 +158,23 @@ ONE_STEP_ARCHS = ("internlm2_20b", "command_r_35b")
 ONE_STEP_LAYERS, ONE_STEP_PROMPT, ONE_STEP_DECODE = 4, 500, 4
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of SM clock: the spin before each timed call
 HOST8_FORCED_PAGES = 32  # pages driven to HOST8 if the policy leaves it empty
+# Phase 2d: mamba2_780m's recurrent prefill runs one decode step (48 SSM
+# layers) per prompt token, so its prompts are cut to 64-128 tokens.
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_DECODE = 2, (64, 129), 16
+DECODE_VS_FORWARD = 0.15  # tests/test_archs.py::test_smoke_decode_matches_forward
+# Phase 2e: a 400-token request preempted after 5 decode steps; a 200-token
+# request churns the vacated slot; the first resumes into the other slot.
+PREEMPT_PROMPT, PREEMPT_NEW, PREEMPT_AFTER = 400, 24, 5
+CHURN_PROMPT, CHURN_NEW = 200, 6
+# Phase 2f: the frontend's burst trace over two replicas, replica 0
+# hard-failing at virtual step 40 (checked on the SMOKE, whose geometry and
+# token accounting are the same: 11 arrivals, 2 preemptions, 3 resumes, 1
+# slot parked off the failed replica).
+FRONTEND_TRACE = dict(kind="burst", steps=64, rate=0.06, seed=3, sla_mix=(0.85, 0.15),
+                      burst_every=24, burst_len=4, burst_mult=8.0, burst_sla=1,
+                      prompt_len=(200, 400), new_tokens=(16, 32), n_tenants=2,
+                      tenant_mix=(0.8, 0.2), tenant_flip_step=32)
+FRONTEND_CHUNK, FRONTEND_FAILURES = 64, {40: 0}
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
@@ -800,6 +849,12 @@ def force_migration(eng: TieredEngine) -> bool:
     return True
 
 
+def _tree_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1245,6 +1300,290 @@ def phase_one_step(name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 2d-2f
+def _mamba2_run(model, params, tokens, dtype) -> dict:
+    """``Model.prefill`` (the recurrent scan for the states, the parallel
+    chunked forward for the logits) on a batch of prompts, then
+    ``MAMBA_DECODE`` greedy decode steps; the decode logits against the
+    parallel forward over the same tokens."""
+    b, s = tokens.shape
+    t0 = time.perf_counter()
+    state = model.init_cache(b, s + MAMBA_DECODE + 1, dtype=dtype)
+    logits, state = model.prefill(params, {"tokens": tokens}, state)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    gen = [torch.argmax(logits[:, -1], -1)]
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(MAMBA_DECODE):
+        lg, state = model.decode_step(params, gen[-1][:, None], state)
+        outs.append(lg)
+        gen.append(torch.argmax(lg[:, 0], -1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    seq = torch.cat([tokens] + [g[:, None] for g in gen[:-1]], 1)
+    full = model.forward(params, {"tokens": seq})[:, s:].float()
+    dec = torch.cat(outs, 1).float()
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        fail(f"mamba2_780m ({dtype}): logits are not finite")
+    return {"prefill_ms_per_batch": prefill_ms, "prefill_ms_per_request": prefill_ms / b,
+            "decode_ms_per_step": decode_ms / MAMBA_DECODE,
+            "decode_vs_forward_max_diff": float((full - dec).abs().max()),
+            "max_abs_logit": float(full.abs().max())}
+
+
+def phase_mamba2() -> dict:
+    """``mamba2_780m`` at full width (no kernel of the port runs here: the
+    SSD blocks are plain PyTorch, as in the reference): a batch of
+    ``MAMBA_BATCH`` prompts through prefill and ``MAMBA_DECODE`` greedy
+    decode steps in bf16 (timed), then again with the same weights in f32,
+    where the decode logits are held to the parallel forward over the same
+    tokens at the reference's bar. In bf16 the two drift apart with depth
+    in the reference as in the port (``scripts/mamba2_drift.py`` measures
+    both on the CPU), so the bf16 difference is reported, not held. The
+    tiered engine must refuse the config (no attention, no KV to tier).
+    Frees the model after."""
+    cfg = get("mamba2_780m")
+    torch.cuda.reset_peak_memory_stats()
+    model, params = init_params(cfg)
+    try:
+        TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                     recent_window=R, device=DEV)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("mamba2_780m: TieredEngine accepted an attention-free config")
+    rng = np.random.default_rng(SEED)
+    s = int(rng.integers(*MAMBA_PROMPT))
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (MAMBA_BATCH, s)), device=DEV)
+    bf16 = _mamba2_run(model, params, tokens, torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    params = _tree_f32(params)
+    f32 = _mamba2_run(model, params, tokens, torch.float32)
+    if f32["decode_vs_forward_max_diff"] >= DECODE_VS_FORWARD:
+        fail(f"mamba2_780m: f32 decode logits differ from the parallel forward by "
+             f"{f32['decode_vs_forward_max_diff']} (bar {DECODE_VS_FORWARD})")
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": MAMBA_BATCH,
+           "prompt_tokens": s, "decode_steps": MAMBA_DECODE, "bf16": bf16, "f32": f32,
+           "weights_bytes": weights, "peak_memory_bytes_bf16": peak,
+           "engine_refusal": refusal}
+    log(f"phase 2d ok (mamba2_780m, full width): {json.dumps(out)}")
+    del model, params
+    free_device()
+    return out
+
+
+def table_rows(cache, slot: int) -> dict:
+    """Logical pages of ``slot``'s rows per (pool, layer), in table order:
+    the order the attention kernels merge a sequence's pages in."""
+    out = {}
+    for pool, levels, owner in (("warm", (kvc.WARM,), cache._pool_slot),
+                                ("cold", (kvc.COLD,), cache._pool_slot),
+                                ("host", (kvc.HOST8, kvc.HOST4), cache._host_slot)):
+        table = getattr(cache.state, f"{pool}_table").cpu().numpy()
+        count = getattr(cache.state, f"{pool}_n").cpu().numpy()
+        for layer in range(cache.la):
+            rids = [cache.rid(layer, slot, p) for p in range(cache.max_pages)]
+            lookup = {int(owner[r]): r % cache.max_pages for r in rids
+                      if cache._page_exists[r] and int(cache.physical[r]) in levels}
+            out[f"{pool}/{layer}"] = [lookup[int(x)]
+                                      for x in table[layer, slot, :int(count[layer, slot])]]
+    return out
+
+
+def billing(cache) -> dict:
+    return {name: (q.bytes_total, q.ops, q.busy_s) for name, q in cache.media_queues.items()}
+
+
+def _billed_since(cache, before: dict, dispatches: int) -> tuple:
+    after = billing(cache)
+    return ({n: tuple(float(a - b) for a, b in zip(after[n], before[n])) for n in after},
+            cache.kernel_dispatches - dispatches)
+
+
+def preempt_engine(model, params) -> TieredEngine:
+    """The smoke's geometry on the default path (async + prefetch), with a
+    profile window longer than the run: placements never move, so the
+    preempted run can be held to the uninterrupted one bit for bit."""
+    ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=10_000,
+                            async_migration=True, prefetch=True, faults=False)
+    return TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                        recent_window=R, ts=ts, device=DEV)
+
+
+def phase_preempt(cfg, model, params) -> dict:
+    """Preemption to the host tier at full width: an uninterrupted run of
+    one request, then the same request preempted after ``PREEMPT_AFTER``
+    steps (its device pages demoted to their same-codec host tiers and
+    parked), another request churning the vacated slot, and a resume into
+    the other slot. Tokens must equal the uninterrupted run's bit for bit,
+    the resumed slot's table rows must be in the uninterrupted order, no
+    prompt token is re-prefilled, and the demotion bills like a plain
+    pipeline demotion of the same pages. Counts are reset before and read
+    after the preempted run."""
+    rng = np.random.default_rng(SEED + 2)
+    prompt = rng.integers(1, cfg.vocab_size, PREEMPT_PROMPT)
+    churn = rng.integers(1, cfg.vocab_size, CHURN_PROMPT)
+
+    eng = preempt_engine(model, params)
+    ref_req = eng.make_request(prompt, PREEMPT_NEW)
+    eng.start_request(0, ref_req)
+    for _ in range(PREEMPT_AFTER):
+        eng.step()
+    ref_rows = table_rows(eng.cache, 0)
+    while not ref_req.done:
+        eng.step()
+    del eng
+    free_device()
+
+    # A plain pipeline demotion of the same pages at the same point.
+    eng = preempt_engine(model, params)
+    eng.start_request(0, eng.make_request(prompt, PREEMPT_NEW))
+    for _ in range(PREEMPT_AFTER):
+        eng.step()
+    cache = eng.cache
+    cache.drain_migrations()
+    before, disp = billing(cache), cache.kernel_dispatches
+    rids = cache.slot_rids(0)
+    dev = rids[np.isin(cache.physical[rids], (kvc.WARM, kvc.COLD))]
+    bits = np.array([cache._bits[int(x)] for x in cache.physical[dev]])
+    cache.pipeline.submit(cache.plan_cohorts(dev, np.where(bits == 8, kvc.HOST8, kvc.HOST4)))
+    cache.pipeline.drain()
+    plain_bill = _billed_since(cache, before, disp)
+    del eng, cache
+    free_device()
+
+    spies = install_spies()
+    eng = preempt_engine(model, params)
+    cache = eng.cache
+    reset_counts(spies)
+    req = eng.make_request(prompt, PREEMPT_NEW)
+    eng.start_request(0, req)
+    for _ in range(PREEMPT_AFTER):
+        eng.step()
+    cache.drain_migrations()
+    before, disp = billing(cache), cache.kernel_dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = eng.preempt_slot(0)
+    torch.cuda.synchronize()
+    preempt_ms = (time.perf_counter() - t0) * 1e3
+    preempt_bill = _billed_since(cache, before, disp)
+    other = eng.make_request(churn, CHURN_NEW)
+    eng.start_request(0, other)
+    while not other.done:
+        eng.step()
+    t0 = time.perf_counter()
+    eng.resume_into(1, pre)
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    rows = table_rows(cache, 1)
+    while not req.done:
+        eng.step()
+    stats = eng.finish()
+    torch.cuda.synchronize()
+    counts = read_counts(spies)
+    remove_spies(spies)
+
+    demoted = sum(pg.restore_level in (kvc.WARM, kvc.COLD) for pg in pre.parked.pages)
+    if req.out_tokens != ref_req.out_tokens:
+        fail(f"preempt: resumed tokens {req.out_tokens} != uninterrupted {ref_req.out_tokens}")
+    if rows != ref_rows:
+        fail("preempt: the resumed slot's table rows are not in the uninterrupted run's order")
+    if stats.re_prefill_tokens or stats.preemptions != 1 or stats.resumes != 1:
+        fail(f"preempt: re-prefilled {stats.re_prefill_tokens} tokens, {stats.preemptions} "
+             f"preemptions, {stats.resumes} resumes")
+    if stats.resumed_pages != len(pre.parked.pages):
+        fail(f"preempt: resumed {stats.resumed_pages} pages of {len(pre.parked.pages)} parked")
+    if demoted == 0 or preempt_bill != plain_bill:
+        fail(f"preempt: {demoted} device pages demoted; billed {preempt_bill}, a plain "
+             f"demotion of the same pages {plain_bill}")
+    if (counts["fused_tiered_attention"] != eng.la * stats.steps
+            or stats.attn_launches != counts["fused_tiered_attention"]
+            or counts["quant_pages"] < 1 or counts["dequant_pages"] < 1):
+        fail(f"preempt: launches {counts} for {stats.steps} steps of {eng.la} layers, billed "
+             f"{stats.attn_launches}")
+    check_counts(counts, "preempt")
+    out = {"prompt_tokens": PREEMPT_PROMPT, "new_tokens": PREEMPT_NEW,
+           "preempted_after_steps": PREEMPT_AFTER, "parked_pages": len(pre.parked.pages),
+           "demoted_pages": int(demoted), "resumed_pages": stats.resumed_pages,
+           "preempt_slot_ms": preempt_ms, "resume_into_ms": resume_ms,
+           "re_prefill_tokens": stats.re_prefill_tokens, "tokens_equal": True,
+           "demotion_billing": {k: list(v) for k, v in preempt_bill[0].items()},
+           "demotion_kernel_dispatches": preempt_bill[1], "decode_steps": stats.steps,
+           "launches": counts}
+    log(f"phase 2e ok (qwen1_5_4b preempt/resume, full width): {json.dumps(out)}")
+    del eng, cache, pre
+    free_device()
+    return out
+
+
+def phase_frontend(cfg, model, params) -> dict:
+    """The SLA-aware frontend at full width: ``ContinuousScheduler`` over
+    two replicas that share one set of weights, on the default path (async
+    + prefetch at ``ASYNC_ALPHA``, 16-step windows), the burst trace, and
+    replica 0 hard-failing mid-trace (its running slots parked and resumed
+    on replica 1). Counts are reset before and read after the run."""
+    ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
+                            async_migration=True, prefetch=True, faults=False)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    engines = [TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                            recent_window=R, ts=ts, device=DEV) for _ in range(2)]
+    events = generate(TraceConfig(**FRONTEND_TRACE))
+    sched = ContinuousScheduler(engines, events, cfg.vocab_size,
+                                prefill_chunk_tokens=FRONTEND_CHUNK)
+    spies = install_spies()
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    stats = sched.run(failures=FRONTEND_FAILURES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(spies)
+    remove_spies(spies)
+    what = "frontend"
+    done = stats.done()
+    if len(done) + stats.refused != len(events):
+        fail(f"{what}: {len(done)} done + {stats.refused} refused != {len(events)} arrivals")
+    for rec in done:
+        if (len(rec.token_steps) != rec.event.max_new_tokens
+                or len(rec.request.out_tokens) != rec.event.max_new_tokens
+                or not (rec.tbt() >= 1).all()):
+            fail(f"{what}: request {rec.event.seq} has {len(rec.token_steps)} token steps "
+                 f"for {rec.event.max_new_tokens} tokens, TBT {rec.tbt().tolist()}")
+    if (stats.re_prefill_tokens or stats.preemptions < 1 or stats.resumes < 1
+            or stats.replica_failures != 1 or stats.failover_parked < 1):
+        fail(f"{what}: {stats.summary()}")
+    billed = sum(e.stats.attn_launches for e in engines)
+    if counts["fused_tiered_attention"] != billed or any(
+            counts[n] < 1 for n in ("fused_tiered_attention", "quant_pages", "transcode_pages",
+                                    "dequant_pages")):
+        fail(f"{what}: launches {counts}, billed attention launches {billed}")
+    check_counts(counts, what)
+    check_bf16_page_out(spies, what)
+    for i, e in enumerate(engines):
+        pipe, ring = e.cache.pipeline, e.cache.staging_ring
+        if pipe.prefetch_staged != pipe.prefetch_hits + pipe.prefetch_misses + \
+                pipe.prefetch_invalidated or ring.held_slots:
+            fail(f"{what}: replica {i}: prefetch staged {pipe.prefetch_staged}, hits "
+                 f"{pipe.prefetch_hits}, misses {pipe.prefetch_misses}, invalidated "
+                 f"{pipe.prefetch_invalidated}; {ring.held_slots} ring credits held")
+    out = {"arrivals": len(events), "summary": stats.summary(), "wall_s": wall,
+           "virtual_steps": stats.steps, "ms_per_virtual_step": wall / stats.steps * 1e3,
+           "replica_decode_steps": [e.stats.steps for e in engines],
+           "replica_windows": [e.stats.windows for e in engines],
+           "replica_migrations": [e.stats.migrations for e in engines],
+           "tco_savings_pct": [e.stats.tco_savings_pct for e in engines],
+           "prefetch_staged": [e.stats.prefetch_staged for e in engines],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "launches": counts}
+    log(f"phase 2f ok (frontend over two qwen1_5_4b replicas, full width): {json.dumps(out)}")
+    del sched, engines
+    free_device()
+    return out
+
+
 def reckon_memory(cfg, params, eng) -> dict:
     """Bytes of this run's weights and tiered KV state, from their sizes, and
     what full depth would need: layer weights scale with depth, the class
@@ -1300,8 +1639,19 @@ def main() -> int:
     for name, e in phase_compare(get("internlm2_20b")).items():
         q3errs[name] = max(q3errs[name], e)
 
-    # The GQA archs first, on an empty card (phases 2b and 2c).
+    # The GQA archs first, on an empty card (phases 2b and 2c); the SSM
+    # family, preemption and the frontend (phases 2d-2f) before the
+    # qwen3_32b engine takes its ~40 GB for the rest of the run.
     one_step = {name: phase_one_step(name) for name in ONE_STEP_ARCHS}
+    t0 = time.perf_counter()
+    mamba2 = phase_mamba2()
+    model, params = init_params(cfg)
+    preempt = phase_preempt(cfg, model, params)
+    frontend = phase_frontend(cfg, model, params)
+    del model, params
+    free_device()
+    new_phases_s = time.perf_counter() - t0
+    log(f"phases 2d-2f took {new_phases_s:.1f} s")
     q3model, q3params = init_params(q3cfg)
     (q3eng, q3counts, q3pp_counts, q3metrics, q3spies, q3state, q3compares,
      _) = phase_async(q3cfg, q3model, q3params, phase="2c")
@@ -1355,6 +1705,11 @@ def main() -> int:
             z = rows.pop(k["name"])
             k[key] = {f: z[f] for f in fields if f in z}
     kernels += list(zrows.values())
+    # Launches on the preemption (2e) and frontend (2f) paths, each counted
+    # from 0 over its own run.
+    for k in kernels:
+        k["preempt_launches"] = preempt["launches"][k["name"]]
+        k["frontend_launches"] = frontend["launches"][k["name"]]
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,
                                             "zamba2_cxl_hw": zmetrics,
@@ -1366,7 +1721,8 @@ def main() -> int:
                     "step_compare": {"serial": serial_step, **compares,
                                      **{f"zamba2_{k}": v for k, v in zcompares.items()},
                                      **{f"qwen3_32b_{k}": v for k, v in q3compares.items()}},
-                    "one_step": one_step,
+                    "one_step": one_step, "mamba2_780m": mamba2, "preempt": preempt,
+                    "frontend": frontend, "phases_2d_2f_s": new_phases_s,
                     "modes": modes, "decode_step_profile": prof,
                     "zamba2_decode_step_profile": zprof,
                     "qwen3_32b_decode_step_profile": q3prof,

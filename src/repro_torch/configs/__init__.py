@@ -10,7 +10,9 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, TierScapeRunConfig
 
-ARCH_IDS = ["qwen1_5_4b", "zamba2_1_2b", "qwen3_32b", "internlm2_20b", "command_r_35b"]
+ARCH_IDS = [
+    "qwen1_5_4b", "zamba2_1_2b", "qwen3_32b", "internlm2_20b", "command_r_35b", "mamba2_780m",
+]
 
 
 def _module(name: str):

@@ -515,6 +515,12 @@ class MigrationPipeline:
                     self._spec.remove(c)
         return n
 
+    def holds_any(self, rids) -> bool:
+        """Whether a demand cohort in the queue (pending or in flight) holds
+        any of ``rids``."""
+        rids = np.asarray(rids, np.int64)
+        return any(np.isin(c.rids, rids).any() for c in self._queue)
+
     def speculative_rids(self) -> set:
         """Rids currently held or queued on the speculative path."""
         out = set(self._held)

@@ -1,6 +1,7 @@
-"""Decoder LMs, after ``repro.models.transformer``: the dense family and the
-hybrid family (Zamba2: a Mamba2 backbone plus one weight-shared attention +
-MLP block applied every ``hybrid_attn_every`` layers):
+"""Decoder LMs, after ``repro.models.transformer``: the dense family, the
+pure-SSM family (Mamba2: a stack of SSD blocks, no attention) and the hybrid
+family (Zamba2: a Mamba2 backbone plus one weight-shared attention + MLP
+block applied every ``hybrid_attn_every`` layers):
 
     model = Model(cfg, device="cuda")
     params = model.init(seed)                        # torch generator
@@ -91,11 +92,11 @@ def layer_params(tree, li: int):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense and hybrid families with RMSNorm (qk-norm
+    """The port runs the dense, SSM and hybrid families with RMSNorm (qk-norm
     included) and 1-D RoPE; every other flavor raises instead of running
     something else."""
     unported = {
-        "family": cfg.family not in ("dense", "hybrid"),
+        "family": cfg.family not in ("dense", "ssm", "hybrid"),
         "norm": cfg.norm != "rmsnorm",
         "mrope": cfg.mrope,
         "frontend": cfg.frontend is not None,
@@ -103,8 +104,8 @@ def check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (the port serves "
-            f"dense and hybrid decoders with rmsnorm and rope; see ROADMAP)"
+            f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
+            f"dense, ssm and hybrid decoders with rmsnorm and rope; see ROADMAP)"
         )
 
 
@@ -131,7 +132,7 @@ def ssm_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv: torch.Ten
 
 
 class Model:
-    """Dense or hybrid decoder (pure functions over a parameter dict +
+    """Dense, SSM or hybrid decoder (pure functions over a parameter dict +
     config)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -158,12 +159,13 @@ class Model:
         params: Dict[str, Any] = {
             "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, dev),
         }
-        if cfg.family == "hybrid":
+        if cfg.family in ("ssm", "hybrid"):
             params["blocks"] = {
                 "norm": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
                 "mixer": ssm.init_ssm_params(gen, cfg, lead, dtype, dev),
             }
-            params["shared"] = block(())
+            if cfg.family == "hybrid":
+                params["shared"] = block(())
         else:
             params["blocks"] = block(lead)
         params["final_norm"] = layers.make_norm_params(cfg.norm, cfg.d_model, dev)
@@ -190,6 +192,9 @@ class Model:
         positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions)
+        elif cfg.family == "ssm":
+            for li in range(cfg.n_layers):
+                x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
         else:
             for li in range(cfg.n_layers):
                 x = transformer_block(layer_params(params["blocks"], li), cfg, x, positions)
@@ -210,10 +215,10 @@ class Model:
     def prefill(self, params, batch: Dict[str, torch.Tensor], state: DecodeState
                 ) -> Tuple[torch.Tensor, DecodeState]:
         """Run the full prompt, filling ``state`` (in place) with every
-        layer's K/V (and, for the hybrid, the SSM states). Returns last-token
-        logits [B, 1, V]."""
+        layer's K/V (and, for the SSM and hybrid families, the SSM states).
+        Returns last-token logits [B, 1, V]."""
         cfg = self.cfg
-        if cfg.family == "hybrid":
+        if cfg.family in ("ssm", "hybrid"):
             # Recurrent state by scanning the tokens (the reference's simple
             # path); the logits come from the parallel forward.
             state = self._prefill_recurrent(params, batch, state)
@@ -245,12 +250,21 @@ class Model:
     def decode_step(self, params, token: torch.Tensor, state: DecodeState
                     ) -> Tuple[torch.Tensor, DecodeState]:
         """One token [B, 1] against the dense cache (K/V updated in place;
-        the hybrid's SSM states replaced by new tensors)."""
+        the SSM states replaced by new tensors)."""
         cfg = self.cfg
         x = params["embed"][token]
         pos = state.cache_len
         if cfg.family == "hybrid":
             x = self._hybrid_decode(params, x, state)
+        elif cfg.family == "ssm":
+            convs, ssts = [], []
+            for li in range(cfg.n_layers):
+                x, conv, sst = ssm_layer_decode(layer_params(params["blocks"], li), cfg, x,
+                                                state.conv_state[li], state.ssm_state[li])
+                convs.append(conv)
+                ssts.append(sst)
+            state.conv_state = torch.stack(convs)
+            state.ssm_state = torch.stack(ssts)
         else:
             for li in range(cfg.n_layers):
                 blk = layer_params(params["blocks"], li)

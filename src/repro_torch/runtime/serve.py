@@ -165,6 +165,8 @@ def make_tiered_decode_step(
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
     cfg = model.cfg
+    if not cfg.has_attention:
+        raise ValueError("tiered KV serving needs attention layers")
     if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(f"tiered decode for family {cfg.family!r} is not ported yet")
     wb = int(ts_cfg.warm_bits)

@@ -15,7 +15,17 @@ pool); on the CPU it runs the plain oracle, as the JAX engine does. A hybrid
 arch (Zamba2) also carries each slot's SSM side state (conv, ssm) through
 the decode steps; its prefill reuses the SSM states ``Model.prefill``
 computes (the reference engine scans the prompt a second time for them, and
-gets the same values). Preemption (park/resume) comes with the frontend.
+gets the same values). An attention-free model (the SSM family) has no KV
+to tier and is refused, as the reference refuses it.
+
+The serving frontend (``repro_torch.frontend``) drives the engine slot by
+slot: ``start_request`` into a chosen free slot, ``step``, and
+preemption-to-host-tier: ``preempt_slot`` demotes the slot's device pages to
+their same-codec host tiers and parks them (with the hybrid's SSM side
+state) as a ``PreemptedRequest``; ``resume_into`` restores it into any free
+slot of any engine of the same geometry with zero re-prefilled tokens.
+Token accounting (``token_capacity``, ``outstanding_tokens``,
+``device_headroom_tokens``) feeds its admission control.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.media.faults import default_plan
 from repro_torch.models.transformer import Model, _attn_layer_count, ssm_state_shapes
 from repro_torch.runtime import serve as serve_rt
-from repro_torch.serving.kv_cache import TieredKVCache
+from repro_torch.serving.kv_cache import ParkedSlot, TieredKVCache
 
 
 @dataclasses.dataclass
@@ -47,13 +57,29 @@ class Request:
 
 
 @dataclasses.dataclass
+class PreemptedRequest:
+    """A request evicted from its batch slot with its KV parked on the host
+    tier (plus, for the hybrid, host copies of its SSM side state).
+    ``TieredEngine.resume_into`` swaps it back in with zero re-prefilled
+    tokens."""
+
+    request: Request
+    parked: ParkedSlot
+    ssm_conv: Optional[torch.Tensor] = None  # [L_ssm, K-1, C] bf16, host
+    ssm_state: Optional[torch.Tensor] = None  # [L_ssm, H, P, N] f32, host
+
+
+@dataclasses.dataclass
 class EngineStats:
     steps: int = 0
     windows: int = 0
     migrations: int = 0
     completed: int = 0
-    # Frontend preemption counters (the frontend is not ported yet; they
-    # stay 0 and keep the reference's stats layout).
+    # Preemption to the host tier: slots vacated for a higher-SLA arrival,
+    # requests swapped back in from parked host pages, pages restored by
+    # those swap-ins, and prompt tokens re-prefilled for an already-started
+    # request (the frontend keeps this at 0: resume restores pages instead
+    # of recomputing them).
     preemptions: int = 0
     resumes: int = 0
     resumed_pages: int = 0
@@ -79,8 +105,13 @@ class EngineStats:
     tco_savings_by_tenant: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
-def _check_ported(family: str) -> None:
-    """Model families the port does not cover yet raise instead of running."""
+def _check_ported(cfg) -> None:
+    """An attention-free model has no KV to tier and is refused, as the
+    reference refuses it; families the port does not cover yet raise
+    instead of running."""
+    if not cfg.has_attention:
+        raise ValueError("tiered KV serving needs attention layers")
+    family = cfg.family
     if family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"not ported yet (a later slice of the port, see ROADMAP): family {family!r} "
@@ -105,7 +136,7 @@ class TieredEngine:
         cfg = model.cfg
         self.device = resolve_device(device)
         ts = ts or TierScapeRunConfig(enabled=True)
-        _check_ported(cfg.family)
+        _check_ported(cfg)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
         self.model = model
@@ -181,6 +212,50 @@ class TieredEngine:
         self.queue.append(req)
         return req
 
+    def try_submit(self, prompt: np.ndarray, max_new_tokens: int,
+                   tenant: int = 0, budget_frac: float = 1.0) -> Optional[Request]:
+        """Token-budget admission: enqueue only if the projected footprint
+        (prompt + full generation) fits inside ``budget_frac`` of the device
+        pools' token capacity beside everything already outstanding.
+        Returns None (refused) instead of overcommitting."""
+        projected = int(len(prompt)) + int(max_new_tokens)
+        if self.outstanding_tokens() + projected > budget_frac * self.token_capacity():
+            return None
+        return self.submit(prompt, max_new_tokens, tenant)
+
+    # ------------------------------------------------- headroom accounting
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def token_capacity(self) -> int:
+        """Sequence-token capacity of the device pools plus the dense recent
+        windows (a class row stores one page of ONE layer, so pool rows
+        divide by the attention layer count)."""
+        rows = self._alloc_capacity("warm") + self._alloc_capacity("cold")
+        return (rows // self.la) * self.pt + self.bs * self.recent_window
+
+    def _alloc_capacity(self, pool: str) -> int:
+        return int(self.cache._alloc[pool].capacity)
+
+    def device_headroom_tokens(self) -> int:
+        """Live device-tier headroom in sequence tokens (free class rows of
+        both pools, layer-divided): admission's immediate-placement signal."""
+        free = len(self.cache._free_warm) + len(self.cache._free_cold)
+        return (free // self.la) * self.pt
+
+    def outstanding_tokens(self) -> int:
+        """Tokens the engine is already committed to: resident context plus
+        the ungenerated remainder of active requests, plus the full
+        projected footprint of everything still queued."""
+        out = 0
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                out += int(self.slot_len[i])
+                out += max(req.max_new_tokens - len(req.out_tokens), 0)
+        for req in self.queue:
+            out += len(req.prompt) + req.max_new_tokens
+        return out
+
     # ------------------------------------------------------------ stepping
     def run(self, max_steps: int = 10_000) -> EngineStats:
         while ((any(s is not None for s in self.slots) or self.queue)
@@ -220,6 +295,47 @@ class TieredEngine:
         self.cache.set_slot_tenant(slot, req.tenant)
         self._prefill(slot, req)
         self.slots[slot] = req
+
+    def preempt_slot(self, slot: int) -> PreemptedRequest:
+        """Preemption to the host tier: demote the slot's device pages to
+        their same-codec host tiers through the media pipeline (billed like
+        normal demotions), park the payloads and recent window, and vacate
+        the slot. The request keeps its pages: ``resume_into`` restores them
+        with zero re-prefilled tokens."""
+        req = self.slots[slot]
+        if req is None or req.done:
+            raise ValueError(f"preempt_slot: slot {slot} has no active request")
+        levels = self.cache.demote_slot_to_host(slot)
+        parked = self.cache.park_slot(slot, restore_levels=levels)
+        pre = PreemptedRequest(request=req, parked=parked)
+        if self.cfg.family == "hybrid":
+            conv, sst = self.ssm_state
+            pre.ssm_conv = conv[:, slot].to("cpu", copy=True)
+            pre.ssm_state = sst[:, slot].to("cpu", copy=True)
+        self.slots[slot] = None
+        self.slot_len[slot] = 0
+        self.stats.preemptions += 1
+        return pre
+
+    def resume_into(self, slot: int, pre: PreemptedRequest) -> Request:
+        """Swap a preempted request back into a free slot (of this engine or
+        another of the same geometry): parked host pages re-register and the
+        previously device-resident ones ride swap-in cohorts home. No prompt
+        token is recomputed."""
+        if self.slots[slot] is not None:
+            raise ValueError(f"resume_into: slot {slot} is occupied")
+        restored = self.cache.restore_slot(slot, pre.parked)
+        if self.cfg.family == "hybrid" and pre.ssm_conv is not None:
+            # Into the engine's current side-state tensors (each decode step
+            # replaces them).
+            conv, sst = self.ssm_state
+            conv[:, slot] = pre.ssm_conv.to(self.device, conv.dtype)
+            sst[:, slot] = pre.ssm_state.to(self.device, sst.dtype)
+        self.slots[slot] = pre.request
+        self.slot_len[slot] = pre.parked.total_len
+        self.stats.resumes += 1
+        self.stats.resumed_pages += restored
+        return pre.request
 
     # ------------------------------------------------------------ internals
     def _fill_slots(self):

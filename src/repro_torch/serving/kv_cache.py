@@ -43,8 +43,10 @@ The per-page ``migrate`` path is the batched executor's oracle and serves
 the single-page evictions of ``append_page``. Host sentinels' key centroids
 and the per-page fetch dequantize through ``kops.dequant_pages`` on
 ``self.device`` (the CUDA kernel on a GPU), or, for HOST8 pages on the
-``cxl_hw`` expander, through ``kops.cxl_decode_pages``. Preemption
-(park/restore) comes with the frontend.
+``cxl_hw`` expander, through ``kops.cxl_decode_pages``. Preemption to the
+host tier (``demote_slot_to_host`` / ``park_slot`` / ``restore_slot``)
+lifts a slot's KV out of the cache as a ``ParkedSlot`` and swaps it back in
+bit-exactly, into any free slot of a cache of the same geometry.
 """
 
 from __future__ import annotations
@@ -111,6 +113,39 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@dataclasses.dataclass
+class ParkedPage:
+    """One preempted page lifted out of the region space: the exact stored
+    host-tier bytes plus where to land it on resume."""
+
+    layer: int
+    page: int  # logical page index within the sequence
+    host_level: int  # HOST8 | HOST4 — codec of the parked payload
+    restore_level: int  # pre-preemption placement to swap back to on resume
+    payload: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+@dataclasses.dataclass
+class ParkedSlot:
+    """A preempted batch slot's full KV state, detached from the cache.
+
+    ``park_slot`` produces one after ``demote_slot_to_host`` has pushed every
+    device-resident page to its same-codec host tier (a raw media copy, no
+    transcode, so payload bytes round-trip bit-exactly). Payloads are host
+    numpy and the recent-window rows host tensors (copies, never views of a
+    device buffer), so the parked request outlives its cache and restores
+    into ANY free slot of ANY cache with the same geometry via
+    ``restore_slot``; pages re-enter through the swap-in cohorts, billed like
+    every other promotion."""
+
+    tenant: int
+    pages: List[ParkedPage]
+    recent_k: torch.Tensor  # [L, R, KV, hd] host copy of the slot's recent window
+    recent_v: torch.Tensor
+    recent_len: int
+    total_len: int
 
 
 class _TableEditor:
@@ -322,6 +357,10 @@ class TieredKVCache:
     @property
     def _free_warm(self) -> List[int]:
         return self._alloc["warm"]._free
+
+    @property
+    def _free_cold(self) -> List[int]:
+        return self._alloc["cold"]._free
 
     def _tenant_of_rid(self, rid: int) -> int:
         return int(self.slot_tenant[int(self._rid_slot[rid])])
@@ -1163,17 +1202,19 @@ class TieredKVCache:
     # ------------------------------------------------------------ release
     def release_slot_pages(self, slot: int) -> None:
         """Request finished: free all of one batch slot's pages, batched. If
-        any of this slot's pages ride an in-flight cohort the pipeline
-        drains first (they must not strand in the staging ring)."""
-        if self.pipeline.busy and bool(
-            (self.physical[self._rid_slot == slot] == INFLIGHT).any()
-        ):
-            self.pipeline.drain()
+        any of this slot's pages ride a queued cohort the pipeline drains
+        first: in flight, they must not strand in the staging ring; still
+        pending, the cohort would later stage freed pages, or the pages of
+        the slot's next request under the same region ids. (The reference
+        drains only for pages in flight, and a pending cohort of a freed
+        slot fails when it stages; ROADMAP §3.)"""
         rids = np.array(
             [self.rid(layer, slot, page)
              for layer in range(self.la) for page in range(self.max_pages)],
             np.int64,
         )
+        if self.pipeline.busy and self.pipeline.holds_any(rids):
+            self.pipeline.drain()
         rids = rids[self._page_exists[rids]]
         self._invalidate_prefetch(rids)
         for r in rids:
@@ -1196,6 +1237,140 @@ class TieredKVCache:
         st = self.state
         for f in ("warm_n", "cold_n", "host_n"):
             getattr(st, f)[:, slot] = 0
+
+    # ------------------------------------------- preemption-to-host-tier
+    # The serving frontend parks a victim slot's KV on the host tier when a
+    # higher-SLA request needs its batch slot, and swaps it back in on
+    # resume — zero re-prefill. Three phases: demote (device pages -> same
+    # codec host tier through the media pipeline, billed like any other
+    # demotion), park (lift payloads + recent window out of the region
+    # space), restore (re-register under a free slot, swap device-bound
+    # pages back in through the pipeline).
+    def slot_rids(self, slot: int) -> np.ndarray:
+        """All live region ids currently owned by ``slot``."""
+        return np.where(self._page_exists & (self._rid_slot == slot))[0]
+
+    def demote_slot_to_host(self, slot: int) -> Dict[int, int]:
+        """Preemption phase 1: demote every device-resident page of ``slot``
+        to the host tier of its OWN codec class (int8 -> HOST8, int4 ->
+        HOST4: a raw media copy with no transcode launch, so the stored
+        payload survives bit-exactly). Runs through the media pipeline, so
+        media-queue bytes and kernel dispatches are billed exactly like a
+        window boundary's demotion cohorts. Returns rid -> pre-demotion
+        placement (``restore_slot``'s swap-in plan)."""
+        if self.pipeline.busy:
+            self.pipeline.drain()
+        rids = self.slot_rids(slot)
+        orig = {int(r): int(self.physical[r]) for r in rids}
+        on_dev = rids[np.isin(self.physical[rids], _DEVICE)]
+        if on_dev.size:
+            bits = np.array([self._bits[int(s)] for s in self.physical[on_dev]])
+            dsts = np.where(bits == 8, HOST8, HOST4).astype(np.int64)
+            self.pipeline.submit(self.plan_cohorts(on_dev, dsts))
+            self.pipeline.drain()
+        return orig
+
+    def park_slot(
+        self, slot: int, restore_levels: Optional[Dict[int, int]] = None
+    ) -> ParkedSlot:
+        """Preemption phase 2: detach the slot's (now host-resident) pages
+        and its recent-window rows from the cache. Host payload slots,
+        sentinel rows and region ids all free, so the batch slot is at once
+        reusable. ``restore_levels`` (from ``demote_slot_to_host``) records
+        where each page lives again after resume; pages it omits stay on
+        their parked host tier. Staged prefetch copies of the slot's pages
+        are invalidated (counted in ``prefetch_invalidated``)."""
+        if self.pipeline.busy:
+            self.pipeline.drain()
+        rids = self.slot_rids(slot)
+        if bool(np.isin(self.physical[rids], _DEVICE).any()):
+            raise ValueError(
+                f"park_slot({slot}): device-resident pages remain — call "
+                "demote_slot_to_host first"
+            )
+        restore_levels = restore_levels or {}
+        self._invalidate_prefetch(rids)
+        layers = rids // (self.bs * self.max_pages)
+        slots_v = (rids // self.max_pages) % self.bs
+        self._host_sentinel_remove(rids, layers, slots_v)
+        pages = []
+        for r in rids:
+            r = int(r)
+            layer, _, page = self.rid_coords(r)
+            lvl = int(self.physical[r])
+            pages.append(ParkedPage(
+                layer=layer, page=page, host_level=lvl,
+                restore_level=int(restore_levels.get(r, lvl)),
+                payload=self.host_pages.pop(r),
+            ))
+        self._page_exists[rids] = False
+        self.physical[rids] = 0
+        self.manager.placement[rids] = 0
+        self._pool_slot[rids] = -1
+        self._host_slot[rids] = -1
+        st = self.state
+        parked = ParkedSlot(
+            tenant=int(self.slot_tenant[slot]),
+            pages=pages,
+            recent_k=st.recent_k[:, slot].to("cpu", copy=True),
+            recent_v=st.recent_v[:, slot].to("cpu", copy=True),
+            recent_len=int(st.recent_len[slot]),
+            total_len=int(st.total_len[slot]),
+        )
+        st.host_n[:, slot] = 0
+        st.recent_len[slot] = 0
+        st.total_len[slot] = 0
+        return parked
+
+    def restore_slot(self, slot: int, parked: ParkedSlot) -> int:
+        """Resume phase: re-register a parked request's pages under ``slot``
+        (which must hold none) and swap the previously device-resident ones
+        back in through the media pipeline — same-codec raw copies again, so
+        every payload lands bit-exactly where its codec class stores it.
+        The recent window and positions restore verbatim; the next decode
+        step continues as if the preemption never happened. Returns the
+        number of pages restored."""
+        if self.slot_rids(slot).size:
+            raise ValueError(f"restore_slot({slot}): target slot still holds pages")
+        if self.pipeline.busy:
+            self.pipeline.drain()
+        self.set_slot_tenant(slot, parked.tenant)
+        # Re-insert host payloads in layer-major logical page order so table
+        # rows append in the order an uninterrupted run built them (the
+        # split attention kernel merges a sequence's rows in table order).
+        pages = sorted(parked.pages, key=lambda pg: (pg.layer, pg.page))
+        rids = np.array([self.rid(pg.layer, slot, pg.page) for pg in pages], np.int64)
+        if rids.size:
+            if bool(self._page_exists[rids].any()):
+                raise ValueError(f"restore_slot({slot}): region ids already live")
+            levels = np.array([pg.host_level for pg in pages], np.int64)
+            for r, pg in zip(rids, pages):
+                self.host_pages[int(r)] = pg.payload
+            self._page_exists[rids] = True
+            self._pool_slot[rids] = -2
+            self._set_placement(rids, levels)
+            layers = rids // (self.bs * self.max_pages)
+            slots_v = (rids // self.max_pages) % self.bs
+            for lvl in (HOST8, HOST4):
+                sel = np.where(levels == lvl)[0]
+                if sel.size:
+                    kp = np.stack([pages[i].payload[0] for i in sel])
+                    ks = np.stack([pages[i].payload[1] for i in sel])
+                    self._host_sentinel_insert(rids[sel], layers[sel], slots_v[sel], kp, ks, lvl)
+        # Recent window + positions land exactly as parked.
+        st = self.state
+        st.recent_k[:, slot] = parked.recent_k.to(self.device, st.recent_k.dtype)
+        st.recent_v[:, slot] = parked.recent_v.to(self.device, st.recent_v.dtype)
+        st.recent_len[slot] = parked.recent_len
+        st.total_len[slot] = parked.total_len
+        swap = np.array(
+            [i for i, pg in enumerate(pages) if pg.restore_level in _DEVICE], np.int64
+        )
+        if swap.size:
+            dsts = np.array([pages[i].restore_level for i in swap], np.int64)
+            self.pipeline.submit(self.plan_cohorts(rids[swap], dsts))
+            self.pipeline.drain()
+        return int(rids.size)
 
     # ------------------------------------------------------------ telemetry
     def record_telemetry(self, telemetry: Dict[str, np.ndarray]) -> None:

@@ -51,7 +51,7 @@ def test_run_configs_equal_reference_field_for_field():
     assert [f.name for f in dataclasses.fields(tbase.ModelConfig)] == [
         f.name for f in dataclasses.fields(jbase.ModelConfig)]
     with pytest.raises(KeyError, match="not ported"):
-        tcfg.get("mamba2_780m")
+        tcfg.get("dbrx_132b")
 
 
 def _drive_allocators(mod):

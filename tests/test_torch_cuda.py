@@ -11,7 +11,12 @@ across the reference sweep of page shapes and head groupings (GQA included),
 mixed int8/int4/host/invalid table rows, empty pools and recent windows, and
 every kernel at the zamba2 page shape (T=16, KV=H=32, hd=64); the cache's
 executors (serial, per-page, and the async pipeline through the pinned ring)
-on the GPU against the CPU. Every test skips where
+on the GPU against the CPU; and, at the SMOKE size, a preempted request
+resumed into another slot with the uninterrupted run's tokens and table
+order, park/restore table invariants, the frontend scheduler over two
+replicas through a replica failure (every request done, zero re-prefill,
+attention launches equal to the billed ones), and the mamba2 SMOKE's decode
+against its forward. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -660,3 +665,173 @@ def test_async_pipeline_on_the_gpu_matches_the_cpu(gen):
         assert torch.equal(getattr(a.state, f).cpu(), getattr(b.state, f)), f
     assert a.staging_ring.held_slots == 0
     assert launched["transcode_pages"] > 0 and launched["dequant_pages"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Preemption to the host tier, the frontend and the SSM family on the GPU
+# (SMOKE size; the CPU parity tests hold the same paths to the JAX package)
+# ---------------------------------------------------------------------------
+
+SMOKE_GEOM = dict(batch_slots=2, page_tokens=8, max_seq_len=128, recent_window=16)
+
+
+def _smoke_engine(model, params, device, window_steps=10_000):
+    from repro_torch.configs import TierScapeRunConfig
+    from repro_torch.serving.engine import TieredEngine
+
+    ts = TierScapeRunConfig(enabled=True, policy="analytical", window_steps=window_steps)
+    return TieredEngine(model, params, ts=ts, device=device, **SMOKE_GEOM)
+
+
+def _smoke_model(arch, device):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+
+    model = Model(get_smoke(arch), device=device)
+    return model, model.init(0)
+
+
+def _slot_table_rows(cache, slot):
+    """Logical pages of ``slot``'s rows per (pool, layer), in table order."""
+    import numpy as np
+
+    from repro_torch.serving.kv_cache import COLD, HOST4, HOST8, WARM
+
+    out = {}
+    for pool, levels, owner in (("warm", (WARM,), cache._pool_slot),
+                                ("cold", (COLD,), cache._pool_slot),
+                                ("host", (HOST8, HOST4), cache._host_slot)):
+        table = getattr(cache.state, f"{pool}_table").cpu().numpy()
+        count = getattr(cache.state, f"{pool}_n").cpu().numpy()
+        for layer in range(cache.la):
+            rids = [cache.rid(layer, slot, p) for p in range(cache.max_pages)]
+            lookup = {int(owner[r]): r % cache.max_pages for r in rids
+                      if cache._page_exists[r] and int(cache.physical[r]) in levels}
+            out[pool, layer] = [lookup[int(x)]
+                                for x in table[layer, slot, :int(count[layer, slot])]]
+    return out
+
+
+def preempt_resume_case(device):
+    """Uninterrupted vs preempted-after-5-steps (the vacated slot churned by
+    another request, resume into the other slot): tokens, zero re-prefill,
+    and the resumed slot's table rows in the uninterrupted run's order."""
+    import numpy as np
+
+    model, params = _smoke_model("qwen1_5_4b", device)
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(1, 256, 24).astype(np.int32)
+    other = rng.integers(1, 256, 12).astype(np.int32)
+    ea = _smoke_engine(model, params, device)
+    ra = ea.make_request(prompt, 20)
+    ea.start_request(0, ra)
+    snap = None
+    for i in range(100):
+        if ra.done:
+            break
+        if i == 5:
+            snap = _slot_table_rows(ea.cache, 0)
+        ea.step()
+    eb = _smoke_engine(model, params, device)
+    rb = eb.make_request(prompt, 20)
+    eb.start_request(0, rb)
+    for _ in range(5):
+        eb.step()
+    pre = eb.preempt_slot(0)
+    o = eb.make_request(other, 6)
+    eb.start_request(0, o)
+    while not o.done:
+        eb.step()
+    eb.resume_into(1, pre)
+    restored = _slot_table_rows(eb.cache, 1)
+    while not rb.done:
+        eb.step()
+    stats = eb.finish()
+    assert rb.out_tokens == ra.out_tokens
+    assert restored == snap
+    assert stats.re_prefill_tokens == 0 and stats.resumes == 1
+    assert stats.resumed_pages == len(pre.parked.pages) > 0
+    assert pre.parked.recent_k.device.type == "cpu"
+
+
+def park_restore_case(device):
+    """After park the slot is empty everywhere; after restore its rids,
+    placements and table rows are the pre-preemption ones."""
+    import numpy as np
+
+    model, params = _smoke_model("qwen1_5_4b", device)
+    eng = _smoke_engine(model, params, device)
+    prompt = np.random.default_rng(13).integers(1, 256, 40).astype(np.int32)
+    eng.start_request(0, eng.make_request(prompt, 4))
+    cache = eng.cache
+    rids, rows = cache.slot_rids(0), _slot_table_rows(cache, 0)
+    phys = cache.physical[rids].copy()
+    pre = eng.preempt_slot(0)
+    assert cache.slot_rids(0).size == 0
+    for f in ("warm_n", "cold_n", "host_n"):
+        assert int(getattr(cache.state, f)[:, 0].sum()) == 0, f
+    assert int(cache.state.recent_len[0]) == 0 and int(cache.state.total_len[0]) == 0
+    eng.resume_into(0, pre)
+    assert np.array_equal(cache.slot_rids(0), rids)
+    assert np.array_equal(cache.physical[rids], phys)
+    assert _slot_table_rows(cache, 0) == rows
+    assert int(cache.state.total_len[0]) == int(eng.slot_len[0])
+
+
+def scheduler_failover_case(device):
+    """Two replicas sharing one set of weights, the burst trace of the
+    reference's scheduler test, replica 0 hard-failing at step 20: every
+    request done or refused with its full token count, zero re-prefill."""
+    from repro_torch.frontend import ContinuousScheduler, TraceConfig, generate
+
+    model, params = _smoke_model("qwen1_5_4b", device)
+    events = generate(TraceConfig(
+        kind="burst", steps=60, rate=0.10, seed=3, sla_mix=(0.85, 0.15), burst_every=24,
+        burst_len=4, burst_mult=8.0, burst_sla=1, prompt_len=(10, 18), new_tokens=(8, 14),
+        n_tenants=2, tenant_mix=(0.8, 0.2), tenant_flip_step=30))
+    engines = [_smoke_engine(model, params, device, window_steps=16) for _ in range(2)]
+    before = build.launch_counts()
+    stats = ContinuousScheduler(engines, events, 256, prefill_chunk_tokens=8).run(
+        max_steps=600, failures={20: 0})
+    assert len(stats.done()) + stats.refused == len(events)
+    for rec in stats.done():
+        assert len(rec.token_steps) == rec.event.max_new_tokens == len(rec.request.out_tokens)
+        assert (rec.tbt() >= 1).all()
+    assert stats.re_prefill_tokens == 0
+    assert stats.replica_failures == 1 and stats.failover_parked >= 1
+    assert stats.preemptions >= 1 and stats.resumes >= 1
+    if device == "cuda":
+        fused = build.launch_counts()["fused_tiered_attention"] - before["fused_tiered_attention"]
+        assert fused == sum(e.stats.attn_launches for e in engines) > 0
+
+
+def mamba2_decode_case(device):
+    """The mamba2 SMOKE: decode over 45 tokens (not a multiple of the SSD
+    chunk) against the parallel forward at the reference's bar of 0.15."""
+    model, params = _smoke_model("mamba2_780m", device)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(1, 256, (2, 45), generator=g).to(device)
+    full = model.forward(params, {"tokens": tokens})
+    state = model.init_cache(2, 47)
+    outs = []
+    for i in range(tokens.shape[1]):
+        lg, state = model.decode_step(params, tokens[:, i: i + 1], state)
+        outs.append(lg)
+    assert torch.isfinite(full).all()
+    assert float((full.float() - torch.cat(outs, 1).float()).abs().max()) < 0.15
+
+
+def test_preempt_resume_bit_identical_on_the_gpu(gen):
+    preempt_resume_case("cuda")
+
+
+def test_park_restore_table_invariants_on_the_gpu(gen):
+    park_restore_case("cuda")
+
+
+def test_scheduler_failover_on_the_gpu(gen):
+    scheduler_failover_case("cuda")
+
+
+def test_mamba2_decode_matches_forward_on_the_gpu(gen):
+    mamba2_decode_case("cuda")

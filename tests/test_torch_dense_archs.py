@@ -97,7 +97,7 @@ def test_model_builds_each_arch_and_still_rejects_unported_flavors():
     for name in ARCHS:
         Model(port_smoke(name), device="cpu")
     cfg = port_smoke("qwen3_32b")
-    for change in (dict(family="moe"), dict(family="ssm"), dict(norm="layernorm"),
+    for change in (dict(family="moe"), dict(norm="layernorm"),
                    dict(mrope=True), dict(frontend="audio")):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), device="cpu")

@@ -114,8 +114,7 @@ def test_model_defaults_to_cuda_and_rejects_unported_flavors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Model(cfg)
-    for change in (dict(family="moe"), dict(family="ssm"),
-                   dict(norm="layernorm"), dict(mrope=True)):
+    for change in (dict(family="moe"), dict(norm="layernorm"), dict(mrope=True)):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), device="cpu")
 
