@@ -2,11 +2,14 @@
 its plain version, and drives the tiered serving loop on one GPU at the full
 width of ``qwen1_5_4b`` (serially and on the default async media path), of
 ``qwen3_32b`` (GQA with qk-norm, at reduced depth) and of ``zamba2_1_2b``
-(the hybrid family, host tiers on the ``cxl_hw`` expander), takes one
-tiered decode step of ``internlm2_20b`` and ``command_r_35b``, runs the
-pure-SSM ``mamba2_780m``, preempts and resumes a ``qwen1_5_4b`` request
-through the host tier, and serves a burst trace through the SLA-aware
-frontend over two ``qwen1_5_4b`` replicas, one of which fails.
+(the hybrid family, host tiers on the ``cxl_hw`` expander) and of
+``qwen3_moe_235b`` (the MoE family, at reduced depth), takes a few tiered
+decode steps of ``internlm2_20b``, ``command_r_35b``, ``dbrx_132b`` and
+``qwen2_vl_72b`` (M-RoPE; also a forward on a vision batch), runs the
+``hubert_xlarge`` encoder and the pure-SSM ``mamba2_780m``, preempts and
+resumes a ``qwen1_5_4b`` request through the host tier, and serves a burst
+trace through the SLA-aware frontend over two ``qwen1_5_4b`` replicas, one
+of which fails.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
@@ -14,15 +17,34 @@ Phases (any failure exits non-zero before the result line):
   1. print the card's name and power limit, build the six CUDA sources
      (seven kernels; one ``nvcc`` per source, all started together);
   2. each kernel vs its plain version on the card at the serving paths'
-     full-width page shapes (T=16; KV=20, hd=128; KV=32, hd=64; and the GQA
+     full-width page shapes (T=16; KV=20, hd=128; KV=32, hd=64; the GQA
      shape KV=8, hd=128 with H=64 (qwen3_32b, command_r_35b) and H=48
-     (internlm2_20b); quant/transcode/dequant/cxl encode/cxl decode
-     byte-equal, fused and per-pool attention within 2e-4, the per-pool one
-     with an empty pool and tails past ``n_pages``);
-  2b. ``internlm2_20b`` (group 6) and ``command_r_35b`` (group 8, tied 256k
-     head) at full width and depth 4: prefill of one 500-token prompt, a few
-     tiered decode steps through the fused kernel, and one kernel-branch
-     step against the plain branch at phase 4's bars;
+     (internlm2_20b, dbrx_132b); and KV=4, hd=128, H=64 (qwen3_moe_235b,
+     group 16); quant/transcode/dequant/cxl encode/cxl decode byte-equal,
+     fused and per-pool attention within 2e-4, the per-pool one with an
+     empty pool and tails past ``n_pages``);
+  2b. ``internlm2_20b`` (group 6), ``command_r_35b`` (group 8, tied 256k
+     head), ``dbrx_132b`` (MoE, 16 experts top 4) and ``qwen2_vl_72b``
+     (M-RoPE, QKV biases) at full width and depth 4: prefill of one
+     500-token prompt, a few tiered decode steps through the fused kernel,
+     and one kernel-branch step against the plain branch at phase 4's bars;
+     for ``qwen2_vl_72b`` also one forward of a 2 x 512 vision batch (the
+     first 64 positions patch embeddings, 3-axis positions), held finite,
+     and a 2-slot decode step at unequal lengths whose q/k in every layer
+     equal 1-D RoPE at each slot's own position;
+  2g. ``qwen3_moe_235b`` at full width (128 experts, top 8, 64 heads on 4)
+     and 8 of its 94 layers (full depth is ~470 GB of bf16 weights): phase
+     3's default path and its checks, phase 4's compares and phase 5's
+     timings at its shapes; two MoE layer calls on the same inputs
+     byte-equal, and one layer timed at a prefill and the decode shape;
+     prints the prefill ``dropped_frac``, the weight bytes and the expert
+     bytes a decode step reads (every expert, as the reference's einsum);
+     frees the card after;
+  2h. ``hubert_xlarge`` at full width and full depth (48 layers, hd 80,
+     bidirectional, LayerNorm): a bf16 forward of 2 x 3072 frames (past the
+     blockwise-attention threshold; the reference's blocks need a multiple
+     of 1024), timed, then in f32 with the same weights, the difference
+     reported; the tiered engine must refuse it;
   2c. ``qwen3_32b`` at full width (qk-norm, 64 heads on 8 KV heads) and 32
      of its 64 layers (full depth is ~65.5 GB of bf16 weights beside ~18 GB
      of class buffers), random bf16 weights from a seed: phase 3's default
@@ -100,8 +122,10 @@ memory of the runs that follow them.
 Media busy seconds in the engine are modeled time from the catalog's
 parameters, not measurements of this card; they are not printed.
 The ``kernels`` line lists all seven kernels (launches from the main-path
-run that drives each, and from the preemption and frontend runs as
-``preempt_launches``/``frontend_launches``). The last line is the JSON result
+run that drives each, and from the preemption, frontend, MoE and one-step
+runs as ``preempt_launches``/``frontend_launches``/``moe_launches``/
+``one_step_launches``; kernels 1-5 also carry their times at the
+``qwen3_moe_235b`` shapes, ``at_qwen3_moe_235b``). The last line is the JSON result
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -128,7 +152,7 @@ from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.media.faults import FaultEvent, FaultPlan  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, attention, inputs, moe  # noqa: E402
 from repro_torch.models.transformer import _attn_layer_count  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
@@ -149,13 +173,23 @@ MODES_LAYERS = 4  # depth of the phase-3b executor comparison
 NEW_TOKENS = 48
 # Prompt lengths per arch: the hybrid prefill scans the prompt one recurrent
 # step per token (host-bound in eager PyTorch), so its prompts are shorter.
-PROMPTS = {"qwen1_5_4b": (400, 601), "qwen3_32b": (400, 601), "zamba2_1_2b": (200, 301)}
+PROMPTS = {"qwen1_5_4b": (400, 601), "qwen3_32b": (400, 601), "zamba2_1_2b": (200, 301),
+           "qwen3_moe_235b": (400, 601)}
 # qwen3_32b at full depth: 64 x 0.975 GB of bf16 layer weights + 3.1 GB of
 # embedding and head, beside class buffers that hold every layer's rows in
 # each layer's slice (~18 GB at 64 layers): more than one 80 GB card.
 QWEN3_LAYERS = 32
-ONE_STEP_ARCHS = ("internlm2_20b", "command_r_35b")
+ONE_STEP_ARCHS = ("internlm2_20b", "command_r_35b", "dbrx_132b", "qwen2_vl_72b")
 ONE_STEP_LAYERS, ONE_STEP_PROMPT, ONE_STEP_DECODE = 4, 500, 4
+# qwen2_vl_72b's extras: a vision batch (seq / 8 = 64 patch positions) and a
+# second prompt, of another length, for the 2-slot M-RoPE check.
+VLM_BATCH, VLM_SEQ, VLM_SECOND_PROMPT = 2, 512, 300
+# Phase 2g: qwen3_moe_235b at 8 of 94 layers: 8 x 4.98 GB of bf16 layer
+# weights (4.83 GB of experts) + 2.49 GB of embedding and head.
+MOE_LAYERS = 8
+# Phase 2h: hubert_xlarge at full depth, past CHUNKED_ATTN_THRESHOLD (2048);
+# the blockwise path needs a multiple of KV_BLOCK (1024).
+HUBERT_BATCH, HUBERT_FRAMES = 2, 3072
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of SM clock: the spin before each timed call
 HOST8_FORCED_PAGES = 32  # pages driven to HOST8 if the policy leaves it empty
 # Phase 2d: mamba2_780m's recurrent prefill runs one decode step (48 SSM
@@ -1231,7 +1265,10 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
 def phase_profile(eng, state) -> dict:
     """Where one decode step's time goes: 3 kernel-branch steps on the
     mid-run state under ``torch.profiler``; device time by kernel and the
-    device's busy share of the host wall time."""
+    device's busy share of the host wall time. Only the device's own events
+    (kernels, copies) are summed: an operator's self device time is the time
+    of the kernels it launched, which appear as events of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
@@ -1245,7 +1282,8 @@ def phase_profile(eng, state) -> dict:
             step(eng.params, tokens, state, eng.ssm_state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if device_ms <= 0:
         fail("the profiler recorded no device time")
@@ -1291,11 +1329,187 @@ def phase_one_step(name: str) -> dict:
              "a page-out through quant_pages")
     out = {"layers": cfg.n_layers, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
            "prompt_tokens": ONE_STEP_PROMPT, "prefill_ms": prefill_ms,
-           "decode_ms_per_step": decode_ms / ONE_STEP_DECODE, "launches": counts,
-           "step_compare": step_compare(eng)}
+           "decode_ms_per_step": decode_ms / ONE_STEP_DECODE, "launches": counts}
+    if cfg.mrope:
+        out["vision_forward"] = vlm_forward(model, params)
+        out["mrope_two_slots"] = mrope_step_check(eng)
+    out["step_compare"] = step_compare(eng)
     log(f"phase 2b ok ({name} at {cfg.n_layers} of {get(name).n_layers} layers, full width): "
         f"{json.dumps(out)}")
     del eng, model, params, req
+    free_device()
+    return out
+
+
+def vlm_forward(model, params) -> dict:
+    """One forward of a ``VLM_BATCH`` x ``VLM_SEQ`` vision batch (the
+    reference's ``make_train_batch``: patch embeddings in the first seq / 8
+    positions, 3-axis positions), timed and held finite; the patches must
+    change the logits against the same tokens without them."""
+    cfg = model.cfg
+    batch = inputs.make_train_batch(cfg, VLM_BATCH, VLM_SEQ, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if logits.shape != (VLM_BATCH, VLM_SEQ, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"{cfg.name}: vision forward gave {tuple(logits.shape)} or non-finite logits")
+    text = {k: v for k, v in batch.items() if k not in ("embeds", "embeds_mask")}
+    effect = float((model.forward(params, text)[0].float() - logits.float()).abs().max())
+    if effect == 0.0:
+        fail(f"{cfg.name}: the patch embeddings did not change the logits")
+    return {"batch": VLM_BATCH, "seq": VLM_SEQ,
+            "patch_positions": int(batch["embeds_mask"][0].sum()), "forward_ms": ms,
+            "max_abs_logit": float(logits.float().abs().max()), "patch_effect_max_abs": effect}
+
+
+def mrope_step_check(eng: TieredEngine) -> dict:
+    """A second request, of another length, into the free slot, then one
+    engine decode step in which every layer's q/k (from the [3, B, 1]
+    positions the step builds) are recomputed as 1-D RoPE at each slot's own
+    position and must be equal."""
+    cfg = eng.cfg
+    eng.submit(np.random.default_rng(SEED + 3).integers(1, cfg.vocab_size, VLM_SECOND_PROMPT),
+               max_new_tokens=NEW_TOKENS)
+    eng._fill_slots()
+    lens = eng.cache.state.total_len.tolist()
+    if len(set(lens)) != eng.bs:
+        fail(f"{cfg.name}: slot lengths {lens} are not unequal")
+    rope_cfg = dataclasses.replace(cfg, mrope=False)
+    project = attention._project_qkv
+    diffs = []
+
+    def check(p, c, x, positions):
+        q, k, v = project(p, c, x, positions)
+        if positions.shape != (3, eng.bs, 1) or positions[:, :, 0].tolist() != [lens] * 3:
+            fail(f"{cfg.name}: decode positions {positions.tolist()} for slot lengths {lens}")
+        q1, k1, _ = project(p, rope_cfg, x, positions[0])
+        diffs.append(max(float((q - q1).abs().max()), float((k - k1).abs().max())))
+        return q, k, v
+
+    attention._project_qkv = check
+    try:
+        eng.step()
+        torch.cuda.synchronize()
+    finally:
+        attention._project_qkv = project
+    if len(diffs) != eng.la or max(diffs) != 0.0:
+        fail(f"{cfg.name}: 2-slot M-RoPE q/k differ from 1-D RoPE by {diffs}")
+    return {"slot_lengths": lens, "layers_checked": len(diffs), "max_abs_diff": max(diffs)}
+
+
+class MoeSpy:
+    """Wraps ``moe.moe_ffn``: keeps the ``dropped_frac`` of every call with
+    more than one token a group (the engine's prefills), as device tensors
+    read once at the end."""
+
+    def __init__(self):
+        self.fn = moe.moe_ffn
+        self.prefill_dropped = []
+        moe.moe_ffn = self
+
+    def __call__(self, p, cfg, x, capacity=None):
+        y, aux = self.fn(p, cfg, x, capacity)
+        if x.shape[1] > 1:
+            self.prefill_dropped.append(aux["dropped_frac"])
+        return y, aux
+
+    def remove(self) -> list:
+        moe.moe_ffn = self.fn
+        return [float(d) for d in self.prefill_dropped]
+
+
+def phase_moe(cfg, errs) -> tuple:
+    """``qwen3_moe_235b`` at full width and ``MOE_LAYERS`` layers on the
+    default path (phase 3's run and checks, phase 4's compares, phase 5's
+    timings at its shapes), two MoE layer calls on the same inputs
+    byte-equal and one layer's device time (``time_ms``) at a prefill and the
+    decode shape, the prefill ``dropped_frac``, and the expert bytes a decode
+    step reads. Frees the card after."""
+    model, params = init_params(cfg)
+    spy = MoeSpy()
+    try:
+        (eng, counts, pp_counts, metrics, spies, state, compares,
+         _) = phase_async(cfg, model, params, phase="2g")
+    finally:
+        dropped = spy.remove()
+    blk = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    same = {}
+    for what, shape in (("prefill", (1, PROMPTS[cfg.name][1] - 1)), ("decode", (2, 1))):
+        x = torch.randn(shape + (cfg.d_model,), generator=g, device=DEV).to(torch.bfloat16)
+        a, aux_a = moe.moe_ffn(blk, cfg, x)
+        b, aux_b = moe.moe_ffn(blk, cfg, x)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)):
+            fail(f"{cfg.name}: two MoE calls on the same {what} inputs differ")
+        same[what] = {"shape": list(shape), "capacity": moe.route(blk, cfg, x)["capacity"],
+                      "dropped_frac": float(aux_a["dropped_frac"]),
+                      "layer_ms": time_ms(lambda: moe.moe_ffn(blk, cfg, x))}
+    expert_bytes = sum(params["blocks"]["moe"][w].numel() * 2
+                       for w in ("w_gate", "w_up", "w_down"))
+    same["expert_bytes_floor_ms_per_layer"] = expert_bytes / cfg.n_layers / HBM_BYTES_PER_S * 1e3
+    metrics["reckoned"] = reckon_memory(cfg, params, eng)
+    metrics["expert_bytes_per_decode_step"] = expert_bytes
+    metrics["expert_bytes_floor_ms_per_step"] = expert_bytes / HBM_BYTES_PER_S * 1e3
+    metrics["prefill_dropped_frac"] = {"calls": len(dropped), "mean": float(np.mean(dropped)),
+                                       "max": max(dropped), "min": min(dropped)}
+    metrics["moe_calls_byte_equal"] = same
+    metrics["compares"] = compares
+    log(f"phase 2g ok ({cfg.name} at {cfg.n_layers} of {get(cfg.name).n_layers} layers, "
+        f"full width): {json.dumps(metrics)}")
+    rows = {k["name"]: k for k in phase_times(eng, counts, pp_counts, spies, state, errs)}
+    del eng, model, params, state, blk
+    free_device()
+    return metrics, counts, rows
+
+
+def phase_hubert() -> dict:
+    """``hubert_xlarge`` at full width and depth: a bf16 forward of
+    ``HUBERT_BATCH`` x ``HUBERT_FRAMES`` audio frames (the reference's
+    ``make_train_batch``), timed after one warm-up, through the blockwise
+    bidirectional attention; then in f32 with the same weights, the
+    difference reported. The tiered engine must refuse it. Frees the card
+    after."""
+    cfg = get("hubert_xlarge")
+    torch.cuda.reset_peak_memory_stats()
+    model, params = init_params(cfg)
+    try:
+        TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                     recent_window=R, device=DEV)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("hubert_xlarge: TieredEngine accepted an encoder")
+    if HUBERT_FRAMES <= attention.CHUNKED_ATTN_THRESHOLD:
+        fail("hubert_xlarge: the frames do not reach the blockwise attention path")
+    batch = inputs.make_train_batch(cfg, HUBERT_BATCH, HUBERT_FRAMES, seed=SEED, device=DEV)
+    model.forward(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    params = _tree_f32(params)
+    batch = dict(batch, embeds=batch["embeds"].float())
+    t0 = time.perf_counter()
+    full, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    if (logits.shape != (HUBERT_BATCH, HUBERT_FRAMES, cfg.vocab_size)
+            or not (torch.isfinite(logits.float()).all() and torch.isfinite(full).all())):
+        fail(f"hubert_xlarge: logits {tuple(logits.shape)} or not finite")
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model, "head_dim": cfg.head_dim_(),
+           "batch": HUBERT_BATCH, "frames": HUBERT_FRAMES, "bf16_forward_ms": bf16_ms,
+           "f32_forward_ms": f32_ms,
+           "bf16_vs_f32_max_abs_diff": float((logits.float() - full).abs().max()),
+           "max_abs_logit_f32": float(full.abs().max()), "weights_bytes": weights,
+           "peak_memory_bytes_bf16": peak, "engine_refusal": refusal}
+    log(f"phase 2h ok (hubert_xlarge, full width and depth): {json.dumps(out)}")
+    del model, params, logits, full, batch
     free_device()
     return out
 
@@ -1322,7 +1536,7 @@ def _mamba2_run(model, params, tokens, dtype) -> dict:
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3
     seq = torch.cat([tokens] + [g[:, None] for g in gen[:-1]], 1)
-    full = model.forward(params, {"tokens": seq})[:, s:].float()
+    full = model.forward(params, {"tokens": seq})[0][:, s:].float()
     dec = torch.cat(outs, 1).float()
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
         fail(f"mamba2_780m ({dtype}): logits are not finite")
@@ -1626,23 +1840,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    walls = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = time.perf_counter() - t0
+        log(f"phase {phase} took {walls[phase]:.1f} s")
+        return out
+
     cfg, zcfg = get("qwen1_5_4b"), get("zamba2_1_2b")
     q3cfg = dataclasses.replace(get("qwen3_32b"), n_layers=QWEN3_LAYERS)
-    smi = phase_build()
+    mcfg = dataclasses.replace(get("qwen3_moe_235b"), n_layers=MOE_LAYERS)
+    smi = timed("1", phase_build)
+    t0 = time.perf_counter()
     errs = phase_compare(cfg)
     zerrs = phase_compare(zcfg)
     for name in ("cxl_encode_pages", "cxl_decode_pages"):
         zerrs[name] = max(zerrs[name], errs[name])
     # The GQA page shape [., 16, 8, 128] at H=64 (qwen3_32b, command_r_35b)
-    # and H=48 (internlm2_20b).
+    # and H=48 (internlm2_20b, dbrx_132b); [., 16, 4, 128] at H=64
+    # (qwen3_moe_235b, group 16).
     q3errs = phase_compare(q3cfg)
     for name, e in phase_compare(get("internlm2_20b")).items():
         q3errs[name] = max(q3errs[name], e)
+    merrs = phase_compare(mcfg)
+    walls["2"] = time.perf_counter() - t0
 
-    # The GQA archs first, on an empty card (phases 2b and 2c); the SSM
-    # family, preemption and the frontend (phases 2d-2f) before the
-    # qwen3_32b engine takes its ~40 GB for the rest of the run.
-    one_step = {name: phase_one_step(name) for name in ONE_STEP_ARCHS}
+    # The GQA, MoE and VLM archs first, on an empty card (phases 2b, 2g);
+    # the encoder, the SSM family, preemption and the frontend (phases 2h,
+    # 2d-2f) before the qwen3_32b engine takes its ~40 GB for the rest of
+    # the run.
+    one_step = timed("2b", lambda: {name: phase_one_step(name) for name in ONE_STEP_ARCHS})
+    moe_metrics, moe_counts, mrows = timed("2g", phase_moe, mcfg, merrs)
+    hubert = timed("2h", phase_hubert)
     t0 = time.perf_counter()
     mamba2 = phase_mamba2()
     model, params = init_params(cfg)
@@ -1651,7 +1882,9 @@ def main() -> int:
     del model, params
     free_device()
     new_phases_s = time.perf_counter() - t0
+    walls["2d-2f"] = new_phases_s
     log(f"phases 2d-2f took {new_phases_s:.1f} s")
+    t0 = time.perf_counter()
     q3model, q3params = init_params(q3cfg)
     (q3eng, q3counts, q3pp_counts, q3metrics, q3spies, q3state, q3compares,
      _) = phase_async(q3cfg, q3model, q3params, phase="2c")
@@ -1663,6 +1896,8 @@ def main() -> int:
     q3rows = {k["name"]: k for k in phase_times(q3eng, q3counts, q3pp_counts, q3spies, q3state,
                                                  q3errs)}
     free_device()
+    walls["2c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # qwen1_5_4b: the dense path, serial and async (phases 3-5), with the
     # qwen3_32b engine resident (counted out of its peak memory).
@@ -1680,6 +1915,8 @@ def main() -> int:
     modes = phase_modes(cfg)
     kernels = phase_times(eng, counts, pp_counts, spies, state, errs)
     free_device()
+    walls["3-5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # zamba2_1_2b: the hybrid path with its host tiers on cxl_hw (phase 6).
     # The engines stay resident for the profiles, which come last (the
@@ -1693,23 +1930,30 @@ def main() -> int:
     zmetrics["peak_memory_note"] = "above the qwen3_32b and qwen1_5_4b engines left resident"
     zrows = {k["name"]: k for k in phase_times(zeng, zcounts, zpp_counts, zspies, zstate,
                                                 zerrs, encoder)}
+    walls["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     prof = phase_profile(eng, state)
     zprof = phase_profile(zeng, zstate)
     q3prof = phase_profile(q3eng, q3state)
-    # Kernels 1-5 carry their hd=64 (zamba2) and qwen3_32b numbers beside the
-    # hd=128 (qwen1_5_4b) ones; 6-7 run only on the zamba2 path.
+    walls["7"] = time.perf_counter() - t0
+    # Kernels 1-5 carry their hd=64 (zamba2), qwen3_32b and qwen3_moe_235b
+    # numbers beside the hd=128 (qwen1_5_4b) ones; 6-7 run only on the
+    # zamba2 path.
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape", "floor_ms", "f32", "int8")
     for k in kernels:
-        for key, rows in (("at_hd64", zrows), ("at_qwen3_32b", q3rows)):
+        for key, rows in (("at_hd64", zrows), ("at_qwen3_32b", q3rows),
+                          ("at_qwen3_moe_235b", mrows)):
             z = rows.pop(k["name"])
             k[key] = {f: z[f] for f in fields if f in z}
     kernels += list(zrows.values())
-    # Launches on the preemption (2e) and frontend (2f) paths, each counted
-    # from 0 over its own run.
+    # Launches on the preemption (2e), frontend (2f), MoE (2g) and one-step
+    # (2b) paths, each counted from 0 over its own run.
     for k in kernels:
         k["preempt_launches"] = preempt["launches"][k["name"]]
         k["frontend_launches"] = frontend["launches"][k["name"]]
+        k["moe_launches"] = moe_counts[k["name"]]
+        k["one_step_launches"] = {a: o["launches"][k["name"]] for a, o in one_step.items()}
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,
                                             "zamba2_cxl_hw": zmetrics,
@@ -1723,6 +1967,8 @@ def main() -> int:
                                      **{f"qwen3_32b_{k}": v for k, v in q3compares.items()}},
                     "one_step": one_step, "mamba2_780m": mamba2, "preempt": preempt,
                     "frontend": frontend, "phases_2d_2f_s": new_phases_s,
+                    "qwen3_moe_235b": moe_metrics, "hubert_xlarge": hubert,
+                    "phase_wall_s": walls,
                     "modes": modes, "decode_step_profile": prof,
                     "zamba2_decode_step_profile": zprof,
                     "qwen3_32b_decode_step_profile": q3prof,

@@ -34,7 +34,7 @@ from repro_torch.models.convert import params_from_numpy
 
 
 def port_drift(model, params, tokens, dtype) -> tuple:
-    full = model.forward(params, {"tokens": tokens})
+    full = model.forward(params, {"tokens": tokens})[0]
     state = model.init_cache(tokens.shape[0], tokens.shape[1] + 1, dtype=dtype)
     outs = []
     for i in range(tokens.shape[1]):

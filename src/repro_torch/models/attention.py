@@ -1,6 +1,6 @@
-"""Attention for the dense decoder, after ``repro.models.attention``:
-MHA/GQA with QKV biases, per-head q/k RMSNorm (qk-norm) and RoPE, full
-(prefill) and cached-decode modes.
+"""Attention, after ``repro.models.attention``: MHA/GQA with QKV biases,
+per-head q/k RMSNorm (qk-norm), RoPE or Qwen2-VL's M-RoPE, causal or
+bidirectional (the encoder), full (prefill) and cached-decode modes.
 
 The projections and prefill attention are plain large products, left to
 ``torch`` as the JAX package leaves them to XLA. Tiered decode attention is
@@ -59,7 +59,8 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> q [B,S,H,hd], k/v [B,S,KV,hd]: biases, then qk-norm
-    (per head, over hd), then rope on q and k."""
+    (per head, over hd), then rope on q and k (M-RoPE with ``cfg.mrope``:
+    ``positions`` is then [3, B, S])."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -68,8 +69,12 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = layers.apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -165,7 +170,9 @@ def attend_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Ten
     K/V into ``k_cache``/``v_cache`` [B, S_max, KV, hd] at ``cache_len`` in
     place. x: [B, 1, D] -> y [B, 1, D]."""
     b = x.shape[0]
-    positions = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
+    # Every row sits at ``cache_len`` (on every M-RoPE axis: text).
+    shape = (3, b, 1) if cfg.mrope else (b, 1)
+    positions = torch.full(shape, cache_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)

@@ -1,4 +1,5 @@
-"""Shared model layers: inits, norms, rotary embeddings, activations, after
+"""Shared model layers: inits, norms (RMSNorm, LayerNorm), rotary
+embeddings (RoPE, Qwen2-VL's M-RoPE), activations, after
 ``repro.models.layers``.
 
 Parameters are plain dictionaries of tensors in the JAX package's layouts;
@@ -35,16 +36,31 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps) * w).to(dtype)
 
 
-def make_norm_params(kind: str, dim: int, device="cpu"):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet (rmsnorm only)")
-    return torch.ones((dim,), dtype=torch.float32, device=device)
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 mean and (biased) variance over the last dim, ``rsqrt(var +
+    eps)``, then ``scale``/``bias``; cast back to the input dtype."""
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dtype)
+
+
+def make_norm_params(kind: str, dim: int, lead=(), device="cpu"):
+    """f32 norm parameters with leading dims ``lead``: a weight of ones for
+    rmsnorm, ``{"scale": ones, "bias": zeros}`` for layernorm."""
+    shape = tuple(lead) + (dim,)
+    if kind == "rmsnorm":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
 def apply_norm(kind: str, params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet (rmsnorm only)")
-    return rmsnorm(params, x, eps)
+    if kind == "rmsnorm":
+        return rmsnorm(params, x, eps)
+    return layernorm(params, x, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
@@ -58,6 +74,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(head_dim, theta, x.device)  # [hd/2]
     angles = positions[..., None].to(torch.float32) * freqs  # [..., seq, hd/2]
     cos = torch.cos(angles)[..., None, :]  # [..., seq, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary dims split into (t, h, w)
+    sections, each rotated by its own position axis.
+
+    x: [batch, seq, heads, head_dim]; positions3: [3, batch, seq] (text
+    tokens carry identical t/h/w ids, where M-RoPE equals 1-D RoPE)."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
+    if positions3.dim() != 3 or positions3.shape[0] != 3:
+        raise ValueError(f"mrope positions must be [3, B, S], got {tuple(positions3.shape)}")
+    freqs = rope_freqs(head_dim, theta, x.device)  # [half]
+    # Which section (and so which position axis) each rotary dim uses.
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.as_tensor(sections, device=x.device))  # [half]
+    pos_per_dim = positions3.to(torch.float32)[sec_id]  # [half, B, S]
+    angles = pos_per_dim.permute(1, 2, 0) * freqs  # [B, S, half]
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

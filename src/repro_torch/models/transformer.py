@@ -1,11 +1,14 @@
-"""Decoder LMs, after ``repro.models.transformer``: the dense family, the
+"""The model zoo, after ``repro.models.transformer``: decoder LMs (dense,
+MoE, and the Qwen2-VL backbone with M-RoPE and patch embeddings), the
+encoder (HuBERT: bidirectional, LayerNorm, audio frame embeddings), the
 pure-SSM family (Mamba2: a stack of SSD blocks, no attention) and the hybrid
 family (Zamba2: a Mamba2 backbone plus one weight-shared attention + MLP
-block applied every ``hybrid_attn_every`` layers):
+block applied every ``hybrid_attn_every`` layers), behind one API:
 
     model = Model(cfg, device="cuda")
     params = model.init(seed)                        # torch generator
-    state = model.init_cache(batch, max_len)         # decode state
+    logits, aux = model.forward(params, batch)       # full sequence
+    state = model.init_cache(batch, max_len)         # decode state (decoders)
     logits, state = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, tok, state)
 
@@ -23,7 +26,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mlp, ssm
+from repro_torch.models import attention, layers, mlp, moe, ssm
+
+# Families whose blocks are attention + FFN (MoE for "moe").
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "encoder")
 
 
 @dataclasses.dataclass
@@ -92,30 +98,28 @@ def layer_params(tree, li: int):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense, SSM and hybrid families with RMSNorm (qk-norm
-    included) and 1-D RoPE; every other flavor raises instead of running
-    something else."""
-    unported = {
-        "family": cfg.family not in ("dense", "ssm", "hybrid"),
-        "norm": cfg.norm != "rmsnorm",
-        "mrope": cfg.mrope,
-        "frontend": cfg.frontend is not None,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            f"dense, ssm and hybrid decoders with rmsnorm and rope; see ROADMAP)"
-        )
+    """Every family of the reference is ported; an unknown one raises, as
+    the reference's ``Model.init`` does."""
+    if cfg.family not in TRANSFORMER_FAMILIES + ("ssm", "hybrid"):
+        raise ValueError(cfg.family)
 
 
-def transformer_block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
-    """Full-sequence pre-norm attention + MLP block (the hybrid's shared
-    block in the parallel forward)."""
+def block_ffn(p: dict, cfg: ModelConfig, h: torch.Tensor):
+    """A block's FFN on its normed input: the MoE FFN for the ``moe``
+    family, the dense MLP otherwise. Returns (y, aux)."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(p["moe"], cfg, h)
+    return mlp.mlp(p["ffn"], cfg, h), {}
+
+
+def transformer_block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """Full-sequence pre-norm attention + FFN block (also the hybrid's
+    shared block in the parallel forward). Returns (x, aux)."""
     h = layers.apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     x = x + attention.attend_prefill(p["attn"], cfg, h, positions)[0]
     h = layers.apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + mlp.mlp(p["ffn"], cfg, h)
+    y, aux = block_ffn(p, cfg, h)
+    return x + y, aux
 
 
 def ssm_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +136,7 @@ def ssm_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv: torch.Ten
 
 
 class Model:
-    """Dense, SSM or hybrid decoder (pure functions over a parameter dict +
+    """Family-dispatching model (pure functions over a parameter dict +
     config)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -147,13 +151,20 @@ class Model:
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
 
+        def norm(lead):
+            return layers.make_norm_params(cfg.norm, cfg.d_model, lead, dev)
+
         def block(lead):
-            return {
-                "norm1": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
+            p = {
+                "norm1": norm(lead),
                 "attn": attention.init_attn_params(gen, cfg, lead, dtype, dev),
-                "norm2": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
-                "ffn": mlp.init_mlp_params(gen, cfg, lead, dtype=dtype, device=dev),
+                "norm2": norm(lead),
             }
+            if cfg.family == "moe":
+                p["moe"] = moe.init_moe_params(gen, cfg, lead, dtype, dev)
+            else:
+                p["ffn"] = mlp.init_mlp_params(gen, cfg, lead, dtype=dtype, device=dev)
+            return p
 
         lead = (cfg.n_layers,)
         params: Dict[str, Any] = {
@@ -161,15 +172,15 @@ class Model:
         }
         if cfg.family in ("ssm", "hybrid"):
             params["blocks"] = {
-                "norm": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=dev),
+                "norm": norm(lead),
                 "mixer": ssm.init_ssm_params(gen, cfg, lead, dtype, dev),
             }
             if cfg.family == "hybrid":
                 params["shared"] = block(())
         else:
             params["blocks"] = block(lead)
-        params["final_norm"] = layers.make_norm_params(cfg.norm, cfg.d_model, dev)
-        if not cfg.tie_embeddings:
+        params["final_norm"] = norm(())
+        if (cfg.is_decoder and not cfg.tie_embeddings) or cfg.family == "encoder":
             params["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                                   dtype=dtype, device=dev)
         return params
@@ -182,31 +193,64 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, dtype=torch.bfloat16) -> DecodeState:
         return init_decode_state(self.cfg, batch_size, max_len, dtype, self.device)
 
-    # ------------------------------------------------------------- forward
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Full-sequence forward. Returns logits [B, S, V]."""
+    # ------------------------------------------------------------ embed in
+    def _embed_inputs(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = params["embed"][tokens]
-        bsz, seq = tokens.shape
-        positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
+        if cfg.frontend == "audio":
+            # Frontend stub: precomputed frame embeddings.
+            return batch["embeds"].to(params["embed"].dtype)
+        x = params["embed"][batch["tokens"]]
+        if cfg.frontend == "vision" and "embeds" in batch:
+            # Patch embeddings replace token embeddings where the mask is set.
+            mask = batch["embeds_mask"][..., None]
+            x = torch.where(mask, batch["embeds"].to(x.dtype), x)
+        return x
+
+    def _positions(self, batch: Dict[str, torch.Tensor], seq: int, bsz: int, device
+                   ) -> torch.Tensor:
+        """[B, S] position ids, or [3, B, S] under M-RoPE (text positions on
+        all three axes unless the batch brings its own)."""
+        if "positions" in batch:
+            return batch["positions"]
+        base = torch.arange(seq, device=device)[None].expand(bsz, seq)
+        return base[None].expand(3, bsz, seq) if self.cfg.mrope else base
+
+    # ------------------------------------------------------------- forward
+    def forward(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence forward. Returns (logits [B, S, V], aux): for the
+        attention families the MoE losses ``load_balance`` and ``router_z``
+        summed over layers and divided by ``n_layers`` (zero for the others),
+        for the SSM and hybrid families an empty dict."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        bsz, seq = x.shape[0], x.shape[1]
+        positions = self._positions(batch, seq, bsz, x.device)
+        aux: Dict[str, torch.Tensor] = {}
         if cfg.family == "hybrid":
             x = self._hybrid_forward(params, x, positions)
         elif cfg.family == "ssm":
             for li in range(cfg.n_layers):
                 x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
         else:
+            lb = torch.zeros((), dtype=torch.float32, device=x.device)
+            z = torch.zeros((), dtype=torch.float32, device=x.device)
             for li in range(cfg.n_layers):
-                x = transformer_block(layer_params(params["blocks"], li), cfg, x, positions)
+                x, blk_aux = transformer_block(layer_params(params["blocks"], li), cfg, x,
+                                               positions)
+                if cfg.family == "moe":
+                    lb = lb + blk_aux["load_balance"]
+                    z = z + blk_aux["router_z"]
+            aux = {"load_balance": lb / cfg.n_layers, "router_z": z / cfg.n_layers}
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        return self._head(params, x)
+        return self._head(params, x), aux
 
     def _hybrid_forward(self, params, x, positions) -> torch.Tensor:
         """Zamba2: Mamba2 backbone + one weight-shared transformer block
         applied every ``hybrid_attn_every`` layers."""
         cfg = self.cfg
         for group in ssm_groups(cfg):
-            x = transformer_block(params["shared"], cfg, x, positions)
+            x = transformer_block(params["shared"], cfg, x, positions)[0]
             for li in group:
                 x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
         return x
@@ -216,24 +260,26 @@ class Model:
                 ) -> Tuple[torch.Tensor, DecodeState]:
         """Run the full prompt, filling ``state`` (in place) with every
         layer's K/V (and, for the SSM and hybrid families, the SSM states).
-        Returns last-token logits [B, 1, V]."""
+        Returns last-token logits [B, 1, V]. Encoders have no decode state:
+        they raise, as in the reference."""
         cfg = self.cfg
         if cfg.family in ("ssm", "hybrid"):
             # Recurrent state by scanning the tokens (the reference's simple
             # path); the logits come from the parallel forward.
             state = self._prefill_recurrent(params, batch, state)
-            return self.forward(params, batch)[:, -1:], state
-        tokens = batch["tokens"]
-        x = params["embed"][tokens]
-        bsz, seq = tokens.shape
-        positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
+            return self.forward(params, batch)[0][:, -1:], state
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"prefill undefined for family {cfg.family}")
+        x = self._embed_inputs(params, batch)
+        bsz, seq = x.shape[0], x.shape[1]
+        positions = self._positions(batch, seq, bsz, x.device)
         for li in range(cfg.n_layers):
             blk = layer_params(params["blocks"], li)
             hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
             y, k, v = attention.attend_prefill(blk["attn"], cfg, hn, positions)
             x = x + y
             hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-            x = x + mlp.mlp(blk["ffn"], cfg, hn)
+            x = x + block_ffn(blk, cfg, hn)[0]
             state.k_cache[li, :, :seq] = k.to(state.k_cache.dtype)
             state.v_cache[li, :, :seq] = v.to(state.v_cache.dtype)
         state.cache_len = seq
@@ -265,7 +311,7 @@ class Model:
                 ssts.append(sst)
             state.conv_state = torch.stack(convs)
             state.ssm_state = torch.stack(ssts)
-        else:
+        elif cfg.family in ("dense", "moe", "vlm"):
             for li in range(cfg.n_layers):
                 blk = layer_params(params["blocks"], li)
                 hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
@@ -273,7 +319,9 @@ class Model:
                     blk["attn"], cfg, hn, state.k_cache[li], state.v_cache[li], pos
                 )
                 hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-                x = x + mlp.mlp(blk["ffn"], cfg, hn)
+                x = x + block_ffn(blk, cfg, hn)[0]
+        else:
+            raise ValueError(f"decode undefined for family {cfg.family}")
         state.cache_len = pos + 1
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         return self._head(params, x), state

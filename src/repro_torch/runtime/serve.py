@@ -1,5 +1,5 @@
-"""Tiered decode step, after ``repro.runtime.serve`` (dense and hybrid
-families, one device).
+"""Tiered decode step, after ``repro.runtime.serve`` (the dense, MoE, VLM
+and hybrid families, one device).
 
 ``make_tiered_decode_step`` is the paper's technique on the decode path: the
 KV cache's warm/cold pages live in two device-resident quantized pools (host
@@ -10,7 +10,10 @@ plain oracle (``kernels.ref.fused_tiered_attention``) otherwise. Per-page
 softmax mass, including the host pages' would-have-touched mass, comes back
 as telemetry for the TierScape manager. For the hybrid family the tiered KV
 serves the shared attention block's applications, and the SSM groups between
-them carry a (conv, ssm) side state through the step.
+them carry a (conv, ssm) side state through the step. A MoE layer runs its
+FFN with each slot as one dispatch group of one token (capacity 4, so
+nothing drops at decode). Under M-RoPE every slot rotates at its own
+position on all three axes (text).
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
-from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.transformer import (Model, layer_params, ssm_groups,
+from repro_torch.models.transformer import (Model, block_ffn, layer_params, ssm_groups,
                                             ssm_layer_decode)
+
+# Families the tiered step serves: the attention decoders.
+TIERED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -144,13 +149,35 @@ def init_tiered_kv_state(
     )
 
 
+def check_tiered(cfg: ModelConfig) -> None:
+    """Refuse what has no KV to tier: an attention-free model (the
+    reference's message) and an encoder, which has no decode."""
+    if not cfg.has_attention:
+        raise ValueError("tiered KV serving needs attention layers")
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.name}: family 'encoder' has no decode, so no KV to tier")
+    if cfg.family not in TIERED_FAMILIES:
+        raise ValueError(cfg.family)
+
+
+def step_positions(cfg: ModelConfig, total_len: torch.Tensor) -> torch.Tensor:
+    """Rotary positions of one decode step: each slot's ``total_len`` as
+    [B, 1], or under M-RoPE as [3, B, 1] (the same text position on the t/h/w
+    axes). The reference passes [B, 1] under M-RoPE too, which its
+    ``apply_mrope`` reads as [3, B, S]: slot i's position then drives section
+    i (ROADMAP §3)."""
+    pos = total_len[:, None]
+    return pos[None].expand(3, -1, -1) if cfg.mrope else pos
+
+
 def make_tiered_decode_step(
     model: Model,
     ts_cfg: TierScapeRunConfig,
     use_kernels: bool = False,
     device="cuda",
 ):
-    """Decode step over tiered KV pools for the dense and hybrid families.
+    """Decode step over tiered KV pools for the attention decoders (dense,
+    MoE, VLM) and the hybrid family.
 
     Returns step_fn(params, token [B, 1], tkv, extra_state) -> (logits
     [B, 1, V], tkv', extra_state', telemetry) where telemetry maps "warm",
@@ -165,10 +192,7 @@ def make_tiered_decode_step(
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
     cfg = model.cfg
-    if not cfg.has_attention:
-        raise ValueError("tiered KV serving needs attention layers")
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(f"tiered decode for family {cfg.family!r} is not ported yet")
+    check_tiered(cfg)
     wb = int(ts_cfg.warm_bits)
     cb = int(ts_cfg.cold_bits)
     warm_cls = "c8" if wb == 8 else "c4"
@@ -179,8 +203,8 @@ def make_tiered_decode_step(
         Each slot rotary-encodes at its own position and appends the new
         token at its own dense-window offset."""
         hn = layers.apply_norm(cfg.norm, blk["norm1"], x, cfg.norm_eps)
-        positions = total_len[:, None]  # [B, 1]
-        q, k_new, v_new = attn_mod._project_qkv(blk["attn"], cfg, hn, positions)
+        q, k_new, v_new = attn_mod._project_qkv(blk["attn"], cfg, hn,
+                                                step_positions(cfg, total_len))
         # Per-slot write at index recent_len[b] (an index beyond the window
         # writes nothing, matching an inactive slot).
         r = layer_tkv["recent_k"].shape[1]
@@ -232,12 +256,13 @@ def make_tiered_decode_step(
         return x + y, recent_k, recent_v, hot
 
     def attn_layer(blk, x, tkv, g, telemetry, new_recent):
-        """One attention layer (its MLP included) over application ``g`` of
-        the tiered state."""
+        """One attention layer (its MLP or MoE FFN included) over
+        application ``g`` of the tiered state. The MoE FFN takes each slot
+        as a group of one token."""
         layer_tkv = {f: getattr(tkv, f)[g] for f in LAYER_FIELDS}
         x, rk, rv, hot = attend_tiered(blk, x, layer_tkv, tkv.total_len, tkv.recent_len)
         hn = layers.apply_norm(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-        x = x + mlp_mod.mlp(blk["ffn"], cfg, hn)
+        x = x + block_ffn(blk, cfg, hn)[0]
         new_recent[0].append(rk)
         new_recent[1].append(rv)
         for k in telemetry:

@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over slots + tiered KV cache, after
-``repro.serving.engine`` (dense and hybrid families).
+``repro.serving.engine`` (the dense, MoE, VLM and hybrid families).
 
 Request lifecycle: queue -> slot assignment -> prefill (dense, then pages
 compress into the warm tier) -> decode steps (tiered attention, telemetry,
@@ -15,8 +15,11 @@ pool); on the CPU it runs the plain oracle, as the JAX engine does. A hybrid
 arch (Zamba2) also carries each slot's SSM side state (conv, ssm) through
 the decode steps; its prefill reuses the SSM states ``Model.prefill``
 computes (the reference engine scans the prompt a second time for them, and
-gets the same values). An attention-free model (the SSM family) has no KV
-to tier and is refused, as the reference refuses it.
+gets the same values). A MoE arch prefills each prompt as one dispatch group
+(capacity drops happen there, never at decode); a VLM arch serves text
+prompts, its M-RoPE at each slot's own position. An attention-free model
+(the SSM family) has no KV to tier and is refused, as the reference refuses
+it; so is an encoder, which has no decode.
 
 The serving frontend (``repro_torch.frontend``) drives the engine slot by
 slot: ``start_request`` into a chosen free slot, ``step``, and
@@ -43,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.media.faults import default_plan
 from repro_torch.models.transformer import Model, _attn_layer_count, ssm_state_shapes
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime.serve import check_tiered
 from repro_torch.serving.kv_cache import ParkedSlot, TieredKVCache
 
 
@@ -105,22 +109,9 @@ class EngineStats:
     tco_savings_by_tenant: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
-def _check_ported(cfg) -> None:
-    """An attention-free model has no KV to tier and is refused, as the
-    reference refuses it; families the port does not cover yet raise
-    instead of running."""
-    if not cfg.has_attention:
-        raise ValueError("tiered KV serving needs attention layers")
-    family = cfg.family
-    if family not in ("dense", "hybrid"):
-        raise NotImplementedError(
-            f"not ported yet (a later slice of the port, see ROADMAP): family {family!r} "
-            "(only 'dense' and 'hybrid' are ported)"
-        )
-
-
 class TieredEngine:
-    """Single-device engine for dense and hybrid archs with tiered KV."""
+    """Single-device engine for the attention decoders and hybrid archs
+    with tiered KV."""
 
     def __init__(
         self,
@@ -136,7 +127,10 @@ class TieredEngine:
         cfg = model.cfg
         self.device = resolve_device(device)
         ts = ts or TierScapeRunConfig(enabled=True)
-        _check_ported(cfg)
+        # No KV to tier: an attention-free model (refused as the reference
+        # refuses it) or an encoder (the reference accepts it and fails in
+        # prefill; ROADMAP §3).
+        check_tiered(cfg)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
         self.model = model

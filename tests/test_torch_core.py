@@ -50,8 +50,12 @@ def test_run_configs_equal_reference_field_for_field():
         jbase.TierScapeRunConfig(**kw))
     assert [f.name for f in dataclasses.fields(tbase.ModelConfig)] == [
         f.name for f in dataclasses.fields(jbase.ModelConfig)]
-    with pytest.raises(KeyError, match="not ported"):
-        tcfg.get("dbrx_132b")
+    # All ten archs of the reference are registered; an unknown name raises.
+    from repro.configs import ARCH_IDS as jarch_ids
+
+    assert sorted(tcfg.ARCH_IDS) == sorted(jarch_ids)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfg.get("gpt_oss_120b")
 
 
 def _drive_allocators(mod):
@@ -169,6 +173,8 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for mod in ("moe", "inputs"):
+        assert ROOT / "src" / "repro_torch" / "models" / f"{mod}.py" in files
     bad = []
     for f in files:
         for mod in _imports(f):

@@ -16,7 +16,8 @@ resumed into another slot with the uninterrupted run's tokens and table
 order, park/restore table invariants, the frontend scheduler over two
 replicas through a replica failure (every request done, zero re-prefill,
 attention launches equal to the billed ones), and the mamba2 SMOKE's decode
-against its forward. Every test skips where
+against its forward; a full-width MoE layer twice on the same inputs
+byte-equal. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -526,12 +527,13 @@ def test_split_attention_long_tables(gen, b, t, kv, h, hd):
 
 
 @pytest.mark.parametrize("case", ["empty_stripes", "all_host", "recent_len_zero", "gqa",
-                                  "gqa6"])
+                                  "gqa6", "gqa16"])
 def test_split_attention_edges(gen, case):
     """Ranks with no work (3 valid rows over a 96-column table), a sequence
     that sees host sentinels only, an empty recent window, and GQA with
-    H = 64, KV = 8 (qwen3_32b, command_r_35b) and H = 48, KV = 8
-    (internlm2_20b)."""
+    H = 64, KV = 8 (qwen3_32b, command_r_35b), H = 48, KV = 8
+    (internlm2_20b, dbrx_132b) and H = 64, KV = 4 (qwen3_moe_235b, group
+    16)."""
     t, kv, h, hd, b = 16, 20, 20, 128, 2
     n_valid, rlen = [(20, 30, 6), (3, 32, 12)], [32, 5]
     if case == "empty_stripes":
@@ -541,7 +543,7 @@ def test_split_attention_edges(gen, case):
     elif case == "recent_len_zero":
         rlen = [0, 0]
     else:
-        kv, h = 8, 64 if case == "gqa" else 48
+        kv, h = {"gqa": (8, 64), "gqa6": (8, 48), "gqa16": (4, 64)}[case]
     _assert_split_matches(_split_operands(gen, b, t, kv, h, hd, 96, n_valid, rlen))
 
 
@@ -811,7 +813,7 @@ def mamba2_decode_case(device):
     model, params = _smoke_model("mamba2_780m", device)
     g = torch.Generator().manual_seed(3)
     tokens = torch.randint(1, 256, (2, 45), generator=g).to(device)
-    full = model.forward(params, {"tokens": tokens})
+    full = model.forward(params, {"tokens": tokens})[0]
     state = model.init_cache(2, 47)
     outs = []
     for i in range(tokens.shape[1]):
@@ -835,3 +837,27 @@ def test_scheduler_failover_on_the_gpu(gen):
 
 def test_mamba2_decode_matches_forward_on_the_gpu(gen):
     mamba2_decode_case("cuda")
+
+
+def test_moe_ffn_is_deterministic_on_the_gpu(gen):
+    """One full-width qwen3_moe_235b MoE layer (128 experts, top 8, d_model
+    4096) on the card: two calls on the same inputs give byte-equal outputs
+    and aux, at a prefill shape whose capacity drops tokens and at the
+    tiered step's decode shape (capacity 4, nothing dropped)."""
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+
+    cfg = get("qwen3_moe_235b")
+    p = moe.init_moe_params(gen, cfg, device="cuda")
+    for shape in ((1, 600), (2, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen, device="cuda").to(torch.bfloat16)
+        a, aux_a = moe.moe_ffn(p, cfg, x)
+        b, aux_b = moe.moe_ffn(p, cfg, x)
+        torch.cuda.synchronize()
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert torch.equal(a, b), shape
+        assert all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a), shape
+        plan = moe.route(p, cfg, x)
+        assert plan["capacity"] == (48 if shape[1] == 600 else 4)
+        if shape[1] == 1:
+            assert float(aux_a["dropped_frac"]) == 0.0

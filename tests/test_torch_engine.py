@@ -258,14 +258,20 @@ def test_engine_mode_matches_reference(models, mode):
 
 
 def test_unported_family_raises():
+    """What the engine and the tiered step still refuse, with ValueError at
+    construction: an encoder (no decode), the attention-free SSM family (the
+    reference's message) and an unknown family."""
     cfg = port_smoke("qwen1_5_4b")
-    moe = types.SimpleNamespace(cfg=dataclasses.replace(cfg, family="moe"),
-                                device=torch.device("cpu"))
     ts = TierScapeRunConfig(enabled=True)
-    with pytest.raises(NotImplementedError, match="family"):
-        TieredEngine(moe, {}, ts=ts, device="cpu")
-    with pytest.raises(NotImplementedError, match="family"):
-        serve.make_tiered_decode_step(moe, ts, device="cpu")
+    for change, match in ((dict(family="encoder", causal=False), "encoder"),
+                          (dict(family="ssm"), "attention layers"),
+                          (dict(family="retnet"), "retnet")):
+        model = types.SimpleNamespace(cfg=dataclasses.replace(cfg, **change),
+                                      device=torch.device("cpu"))
+        with pytest.raises(ValueError, match=match):
+            TieredEngine(model, {}, ts=ts, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            serve.make_tiered_decode_step(model, ts, device="cpu")
 
 
 # ---------------------------------------------------------------------------

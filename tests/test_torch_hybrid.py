@@ -234,7 +234,8 @@ def test_hybrid_forward_matches_reference(models):
     cfg, jm, jp, tm, tp = models
     prompt = np.random.default_rng(PROMPT_SEED + 1).integers(1, cfg.vocab_size, (2, 45))
     jl, _ = jm.forward(jp, {"tokens": jnp.asarray(prompt, jnp.int32)})
-    tl = tm.forward(tp, {"tokens": torch.as_tensor(prompt)})
+    tl, aux = tm.forward(tp, {"tokens": torch.as_tensor(prompt)})
+    assert aux == {}
     np.testing.assert_allclose(_f32(tl), _f32(jl), atol=LOGIT_ATOL, rtol=0)
 
 

@@ -110,13 +110,19 @@ def test_sdpa_paths_match_reference(causal):
 
 
 def test_model_defaults_to_cuda_and_rejects_unported_flavors():
+    """The card by default; an unknown family raises ``ValueError(family)``
+    as the reference's ``Model.init`` does (every family of the reference is
+    ported)."""
     cfg = port_smoke("qwen1_5_4b")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Model(cfg)
-    for change in (dict(family="moe"), dict(norm="layernorm"), dict(mrope=True)):
-        with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(cfg, **change), device="cpu")
+    for family in ("retnet", "diffusion"):
+        with pytest.raises(ValueError, match=family):
+            Model(dataclasses.replace(cfg, family=family), device="cpu")
+    for change in (dict(family="moe", moe=port_smoke("dbrx_132b").moe),
+                   dict(norm="layernorm"), dict(mrope=True, mrope_sections=(4, 6, 6))):
+        Model(dataclasses.replace(cfg, **change), device="cpu")
 
 
 def test_seeded_init_is_deterministic_and_in_reference_layout():

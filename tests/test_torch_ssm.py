@@ -99,7 +99,8 @@ def test_ssm_forward_matches_reference_f32(f32_models):
     cfg, jm, jp, tm, tp = f32_models
     tokens = _prompts(cfg)
     jl, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens, jnp.int32)})
-    tl = tm.forward(tp, {"tokens": torch.as_tensor(tokens)})
+    tl, aux = tm.forward(tp, {"tokens": torch.as_tensor(tokens)})
+    assert aux == {}
     assert tl.shape == (2, SEQ, cfg.vocab_size) and tl.dtype == torch.float32
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32_TOL)
 
@@ -137,7 +138,7 @@ def test_ssm_decode_matches_forward(models, seq):
     (chunked SSD) forward over the same tokens, at the reference's bar."""
     cfg, _, _, tm, tp = models
     tokens = torch.as_tensor(_prompts(cfg, seq=seq))
-    full = tm.forward(tp, {"tokens": tokens})
+    full = tm.forward(tp, {"tokens": tokens})[0]
     state = tm.init_cache(2, seq + 2)
     outs = []
     for i in range(seq):
