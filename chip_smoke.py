@@ -7,9 +7,10 @@ width of ``qwen1_5_4b`` (serially and on the default async media path), of
 decode steps of ``internlm2_20b``, ``command_r_35b``, ``dbrx_132b`` and
 ``qwen2_vl_72b`` (M-RoPE; also a forward on a vision batch), runs the
 ``hubert_xlarge`` encoder and the pure-SSM ``mamba2_780m``, preempts and
-resumes a ``qwen1_5_4b`` request through the host tier, and serves a burst
+resumes a ``qwen1_5_4b`` request through the host tier, serves a burst
 trace through the SLA-aware frontend over two ``qwen1_5_4b`` replicas, one
-of which fails.
+of which fails, and serves two tenants on one ``qwen1_5_4b`` engine, their
+scheduled demand priced by the budget arbiter and the capacity planner.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
@@ -77,6 +78,22 @@ Phases (any failure exits non-zero before the result line):
      summary per class (TTFT/TBT in virtual steps), wall time, ms per
      virtual step and TCO savings per replica. Phases 2e and 2f count their
      launches from 0 and hold them to the cache's calls;
+  2i. multi-tenancy at ``qwen1_5_4b``'s full width: (a) the cache at 4
+     layers: tenant 0 flooding its slot ends at exactly its warm quota
+     while tenant 1 still gets warm rows, a mass promotion of tenant 0 stays
+     within its quota with the overflow left cold, a cold quota spills a
+     batched demotion to HOST4, the warm and cold tables read back hold no
+     row of another slot's pages, and ``tco_usd()`` is the tenants' sum;
+     (b) the full engine (40 layers, async + prefetch, 8-step windows)
+     serves four requests of tenants 0, 1, 0, 1 on 2 slots: two completed
+     per tenant, both tenants' TCO savings, decode/prefill times, the
+     pipeline's media bytes and prefetch hit rate; (c) phase 2f's
+     scheduled demand fed to a ``BudgetArbiter`` reaches ``fleet_report``
+     and the ``CapacityPlanner``; (d) the capacity frontier swept twice on
+     the host (byte-equal JSON, monotone, dominating 2T by >= 22 savings
+     points; its sha256 and host ms printed) and the README's two-tenant
+     ``simulate_multitenant`` timed with each ``end_window``. (a) and (b)
+     count their launches from 0 and hold them to the cache's calls;
   3. the full-width engine (40 layers, random bf16 weights from a seed)
      serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
      first with serial migration (the blocking executor; at policy weight
@@ -122,9 +139,10 @@ memory of the runs that follow them.
 Media busy seconds in the engine are modeled time from the catalog's
 parameters, not measurements of this card; they are not printed.
 The ``kernels`` line lists all seven kernels (launches from the main-path
-run that drives each, and from the preemption, frontend, MoE and one-step
-runs as ``preempt_launches``/``frontend_launches``/``moe_launches``/
-``one_step_launches``; kernels 1-5 also carry their times at the
+run that drives each, and from the preemption, frontend, MoE, one-step and
+multi-tenant runs as ``preempt_launches``/``frontend_launches``/
+``moe_launches``/``one_step_launches``/``multitenant_launches`` (the
+engine) and ``multitenant_cache_launches``; kernels 1-5 also carry their times at the
 ``qwen3_moe_235b`` shapes, ``at_qwen3_moe_235b``). The last line is the JSON result
 ``{"ok": true, "device": {...}}``.
 """
@@ -133,6 +151,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -146,7 +165,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs import TierScapeRunConfig, get  # noqa: E402
-from repro_torch.core.manager import ManagerConfig  # noqa: E402
+from repro_torch.core import arbiter, capacity, simulator  # noqa: E402
+from repro_torch.core.manager import ManagerConfig, make_manager  # noqa: E402
 from repro_torch.frontend import ContinuousScheduler, TraceConfig, generate  # noqa: E402
 from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
@@ -209,6 +229,19 @@ FRONTEND_TRACE = dict(kind="burst", steps=64, rate=0.06, seed=3, sla_mix=(0.85, 
                       prompt_len=(200, 400), new_tokens=(16, 32), n_tenants=2,
                       tenant_mix=(0.8, 0.2), tenant_flip_step=32)
 FRONTEND_CHUNK, FRONTEND_FAILURES = 64, {40: 0}
+# Phase 2i: multi-tenancy at qwen1_5_4b's full width. (a) The cache's quota
+# paths at MODES_LAYERS depth (512 regions: 128 warm rows at warm_frac 0.25,
+# 256 at 0.5, 512 cold): tenant 0's warm quota on append, its promotion quota
+# and its cold quota. (b) Four requests of tenants 0, 1, 0, 1 on the full
+# engine at tests/test_multitenant.py's policy weight. (c) Phase 2f's
+# scheduled demand into the arbiter and the planner (tests/test_frontend.py's
+# arbiter). (d) benchmarks/capacity_frontier.py's sweep, twice, and the
+# README's two-tenant run (2 x 4096 regions, 40 windows) on the host.
+MT_WARM_QUOTA, MT_PROMOTE_QUOTA, MT_COLD_QUOTA = 48, 16, 8
+MT_TENANTS, MT_PROMPTS, MT_NEW, MT_WINDOW, MT_ALPHA = (0, 1, 0, 1), (400, 601), 32, 8, 0.3
+FRONTIER = dict(n_regions=512, accesses=200_000, flip=8, windows=16, warmup=2,
+                server="v5e-base", years=3.0, fleet_scale=256, seed=0)
+DOMINANCE_FLOOR = 22.0  # savings points over 2T: benchmarks/baseline_guard.py:86
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
@@ -1733,7 +1766,7 @@ def phase_preempt(cfg, model, params) -> dict:
     return out
 
 
-def phase_frontend(cfg, model, params) -> dict:
+def phase_frontend(cfg, model, params) -> tuple:
     """The SLA-aware frontend at full width: ``ContinuousScheduler`` over
     two replicas that share one set of weights, on the default path (async
     + prefetch at ``ASYNC_ALPHA``, 16-step windows), the burst trace, and
@@ -1795,6 +1828,280 @@ def phase_frontend(cfg, model, params) -> dict:
     log(f"phase 2f ok (frontend over two qwen1_5_4b replicas, full width): {json.dumps(out)}")
     del sched, engines
     free_device()
+    return out, stats
+
+
+# ---------------------------------------------------------------- phase 2i
+def _bf16_pages(g, n: int, cfg) -> torch.Tensor:
+    shape = (n, T, cfg.n_kv_heads, cfg.head_dim_())
+    return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+
+
+def _held(cache, level: int, tenant: int) -> int:
+    return int(((cache.physical == level) & cache._page_exists
+                & cache.tenant_mask(tenant)).sum())
+
+
+def check_tenant_tables(cache, what: str) -> int:
+    """Read the warm and cold device tables back once: every row (layer,
+    slot), the decode kernel's read path, must reference only pool rows that
+    hold that slot's pages (tests/test_multitenant.py's no-cross-tenant-reads
+    check), and every pooled page must appear. Returns the rows checked."""
+    rows = 0
+    for pool, level in (("warm", kvc.WARM), ("cold", kvc.COLD)):
+        table = getattr(cache.state, f"{pool}_table").cpu().numpy()
+        count = getattr(cache.state, f"{pool}_n").cpu().numpy()
+        owner = {}
+        for rid in np.where((cache.physical == level) & cache._page_exists)[0]:
+            layer, slot, _ = cache.rid_coords(int(rid))
+            owner[(layer, int(cache._pool_slot[rid]))] = slot
+        seen = 0
+        for layer in range(cache.la):
+            for slot in range(cache.bs):
+                for row in table[layer, slot, :int(count[layer, slot])]:
+                    got = owner.get((layer, int(row)))
+                    if got != slot:
+                        fail(f"{what}: {pool} row of layer {layer}, slot {slot} (tenant "
+                             f"{cache.slot_tenant[slot]}) references slot {got}'s page")
+                    seen += 1
+        if seen != len(owner):
+            fail(f"{what}: the {pool} tables hold {seen} rows for {len(owner)} pages")
+        rows += seen
+    return rows
+
+
+def phase_mt_cache(cfg) -> dict:
+    """The cache's tenant paths at full width and MODES_LAYERS depth, as
+    tests/test_media.py holds them: a warm quota on append (kernel #2), a
+    quota-bounded mass promotion (kernel #3) and a cold quota spilling a
+    batched demotion to HOST4; the device tables read back for cross-tenant
+    rows; per-tenant TCO adding up. Launches must equal the cache's calls."""
+    what = "multitenant cache"
+    total = MODES_LAYERS * 2 * (1024 // T)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    spies = install_spies()
+    reset_counts(spies)
+    out = {}
+    # Warm quota: tenant 0 floods slot 0; tenant 1 still gets warm rows.
+    warm_cap = total // 4
+    c = _mode_cache(cfg, warm_frac=0.25,
+                    tenant_quota={"warm": {0: MT_WARM_QUOTA, 1: warm_cap - MT_WARM_QUOTA}})
+    c.set_slot_tenant(0, 0)
+    c.set_slot_tenant(1, 1)
+    flood = [(la, 0, pg) for la in range(c.la) for pg in range(c.max_pages)]
+    k = _bf16_pages(g, len(flood), cfg)
+    c.append_pages(flood, k, k * 0.3)
+    t0_warm = _held(c, kvc.WARM, 0)
+    other = [(la, 1, pg) for la in range(c.la) for pg in range(8)]
+    k = _bf16_pages(g, len(other), cfg)
+    c.append_pages(other, k, k * 0.3)
+    t1_warm = _held(c, kvc.WARM, 1)
+    if t0_warm != MT_WARM_QUOTA or c._alloc["warm"].used_by(0) != MT_WARM_QUOTA:
+        fail(f"{what}: tenant 0 holds {t0_warm} warm pages, quota {MT_WARM_QUOTA}")
+    if t1_warm != len(other):
+        fail(f"{what}: tenant 1 got {t1_warm} of {len(other)} pages warm")
+    out["warm_quota"] = {"flooded_pages": len(flood), "tenant0_warm": t0_warm,
+                         "tenant1_warm": t1_warm, "tables_rows": check_tenant_tables(c, what)}
+    del c
+    # Promotion quota: everything cold, then a mass promotion of tenant 0.
+    c = _mode_cache(cfg, warm_frac=0.5,
+                    tenant_quota={"warm": {0: MT_PROMOTE_QUOTA, 1: total // 2 - MT_PROMOTE_QUOTA}})
+    c.set_slot_tenant(0, 0)
+    c.set_slot_tenant(1, 1)
+    coords = [(la, sl, pg) for la in range(c.la) for sl in range(c.bs) for pg in range(24)]
+    k, v = _bf16_pages(g, len(coords), cfg), _bf16_pages(g, len(coords), cfg)
+    c.append_pages(coords, k, v)
+    live = np.where(c._page_exists)[0]
+    c.migrate_batch(live, np.full(live.size, kvc.COLD, np.int64))
+    mine = np.where(c._page_exists & c.tenant_mask(0))[0]
+    c.migrate_batch(mine, np.full(mine.size, kvc.WARM, np.int64))
+    promoted, left_cold = _held(c, kvc.WARM, 0), _held(c, kvc.COLD, 0)
+    if promoted > MT_PROMOTE_QUOTA or left_cold == 0 or c._alloc["warm"].used_by(0) != promoted:
+        fail(f"{what}: promotion left tenant 0 {promoted} warm (quota {MT_PROMOTE_QUOTA}), "
+             f"{left_cold} cold")
+    # Shuffle every page over the four tiers, then read the tables back.
+    dsts = rng.choice([kvc.WARM, kvc.COLD, kvc.HOST8, kvc.HOST4], size=live.size)
+    shuffled = c.migrate_batch(live, dsts.astype(np.int64))
+    rows = check_tenant_tables(c, what)
+    tco = [c.tco_usd(), c.tco_usd(0), c.tco_usd(1)]
+    if abs(tco[0] - (tco[1] + tco[2])) > 1e-12 * abs(tco[0]):
+        fail(f"{what}: tco_usd() {tco[0]} != tco_usd(0) + tco_usd(1) = {tco[1] + tco[2]}")
+    out["promotion_quota"] = {"pages": len(coords), "tenant0_promoted": promoted,
+                              "tenant0_left_cold": left_cold, "shuffled_moves": shuffled,
+                              "tables_rows": rows, "tco_usd": tco,
+                              "levels": np.bincount(c.physical[live], minlength=5).tolist()}
+    del c
+    # Cold quota: a batched WARM -> COLD demotion spills the overflow to HOST4.
+    c = _mode_cache(cfg, warm_frac=1.0,
+                    tenant_quota={"cold": {0: MT_COLD_QUOTA, 1: total - MT_COLD_QUOTA}})
+    c.set_slot_tenant(0, 0)
+    c.set_slot_tenant(1, 0)
+    coords = coords[:64]
+    c.append_pages(coords, _bf16_pages(g, 64, cfg), _bf16_pages(g, 64, cfg))
+    live = np.where(c._page_exists)[0]
+    moved = c.migrate_batch(live, np.full(live.size, kvc.COLD, np.int64))
+    cold, host4 = _held(c, kvc.COLD, 0), _held(c, kvc.HOST4, 0)
+    if moved != live.size or cold != MT_COLD_QUOTA or host4 != live.size - MT_COLD_QUOTA:
+        fail(f"{what}: cold quota {MT_COLD_QUOTA}: moved {moved}, cold {cold}, HOST4 {host4}")
+    out["cold_quota"] = {"pages": live.size, "cold": cold, "host4": host4,
+                         "tables_rows": check_tenant_tables(c, what)}
+    del c
+    torch.cuda.synchronize()
+    counts = read_counts(spies)
+    remove_spies(spies)
+    if any(counts[n] < 1 for n in ("quant_pages", "transcode_pages", "dequant_pages")):
+        fail(f"{what}: quant/transcode/dequant kernels not on the path: {counts}")
+    check_counts(counts, what)
+    out["launches"] = counts
+    free_device()
+    return out
+
+
+def phase_mt_engine(cfg, model, params) -> dict:
+    """One engine at full width and depth on the default path (async +
+    prefetch) serving four requests of tenants 0, 1, 0, 1 on two slots, as
+    tests/test_multitenant.py::test_engine_serves_interleaved_tenants does.
+    Counts are reset before and read after the run."""
+    what = "multitenant engine"
+    ts = TierScapeRunConfig(enabled=True, policy="analytical", alpha=MT_ALPHA,
+                            window_steps=MT_WINDOW, async_migration=True, prefetch=True,
+                            faults=False)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
+                       recent_window=R, ts=ts, device=DEV)
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, int(rng.integers(*MT_PROMPTS))),
+                       max_new_tokens=MT_NEW, tenant=t) for t in MT_TENANTS]
+    spies = install_spies()
+    reset_counts(spies)
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(spies)
+    remove_spies(spies)
+    pipe, ring = eng.cache.pipeline, eng.cache.staging_ring
+    if stats.completed != len(reqs) or not all(r.done and len(r.out_tokens) == MT_NEW
+                                               for r in reqs):
+        fail(f"{what}: {stats.completed} of {len(reqs)} requests completed")
+    if stats.completed_by_tenant != {0: 2, 1: 2} or set(stats.tco_savings_by_tenant) != {0, 1}:
+        fail(f"{what}: completed by tenant {stats.completed_by_tenant}, TCO savings by tenant "
+             f"{stats.tco_savings_by_tenant}")
+    if (counts["fused_tiered_attention"] != eng.la * stats.steps
+            or stats.attn_launches != counts["fused_tiered_attention"]
+            or counts["quant_pages"] < 1):
+        fail(f"{what}: launches {counts} for {stats.steps} steps of {eng.la} layers, billed "
+             f"{stats.attn_launches}")
+    if (pipe.prefetch_staged != pipe.prefetch_hits + pipe.prefetch_misses
+            + pipe.prefetch_invalidated or ring.held_slots):
+        fail(f"{what}: prefetch staged {pipe.prefetch_staged}, hits {pipe.prefetch_hits}, "
+             f"misses {pipe.prefetch_misses}, invalidated {pipe.prefetch_invalidated}; "
+             f"{ring.held_slots} ring credits held")
+    check_counts(counts, what)
+    check_bf16_page_out(spies, what)
+    out = engine_metrics(stats, reqs, wall, torch.cuda.max_memory_allocated() - held)
+    out.update(alpha=MT_ALPHA, window_steps=MT_WINDOW, tenants=list(MT_TENANTS),
+               completed_by_tenant=stats.completed_by_tenant,
+               tco_savings_by_tenant=stats.tco_savings_by_tenant,
+               media_bytes=pipe.media_bytes(), prefetch_hit_rate=pipe.prefetch_hit_rate(),
+               prefetch_invalidated=pipe.prefetch_invalidated, launches=counts)
+    del eng
+    free_device()
+    return out
+
+
+def _skewflip(n: int, hot: int, flip: int):
+    return [simulator.skew_flip(n_regions=n, accesses_hot=hot, accesses_cold=hot // 10,
+                                flip_window=flip, hot_first=first, name=name)
+            for first, name in ((True, "early"), (False, "late"))]
+
+
+def phase_mt_chain(fstats) -> dict:
+    """Phase 2f's scheduled demand -> arbiter -> fleet report -> planner,
+    on tests/test_frontend.py's arbiter (6T at alpha 0.5, the skew-flip pair
+    of 128 regions, 8 windows, seed 7)."""
+    what = "multitenant chain"
+    names = ("early", "late")
+    cfg = capacity.PlannerConfig("6t", alpha=0.5, fast_fraction=0.5)
+    arb = capacity.build_arbiter(cfg, [arbiter.TenantSpec(n, sla_weight=1.0) for n in names],
+                                 128)
+    simulator.simulate_multitenant(_skewflip(128, 50_000, 4), arb, windows=8, warmup_windows=2,
+                                   seed=7, prefetch=False)
+    synthetic = arb.fleet_report(last_windows=6).tenant_demand_accesses
+    windows = fstats.demand_by_window(names)
+    fed = fstats.feed_arbiter(arb, names)
+    report = arb.fleet_report(last_windows=6)
+    want = tuple(float(np.mean([w.get(n, 0.0) for w in windows[-6:]])) for n in names)
+    if fed != len(windows) or fed < 1 or report.tenant_demand_accesses != want:
+        fail(f"{what}: fed {fed} windows; fleet report demand {report.tenant_demand_accesses}, "
+             f"the fed windows' mean {want}")
+    point = capacity.CapacityPlanner(capacity.get_server("v5e-base"),
+                                     fleet_scale=64).evaluate(cfg.name, report)
+    if point.servers < 1 or not 0.0 <= point.savings_pct <= 100.0:
+        fail(f"{what}: planner point {point.to_dict()}")
+    return {"windows_fed": fed, "tenant_demand_tokens": list(want),
+            "synthetic_demand_accesses": list(synthetic), "planner_point": point.to_dict()}
+
+
+def phase_mt_frontier() -> dict:
+    """The capacity frontier twice (byte-equal, monotone, dominating 2T by
+    at least DOMINANCE_FLOOR points) and the README's two-tenant run, timed
+    on this host's clock. Savings and server counts are model outputs on the
+    reference's server catalog, not measurements of this machine."""
+    what = "multitenant frontier"
+    f = FRONTIER
+    planner = capacity.CapacityPlanner(capacity.get_server(f["server"]),
+                                       operating_period_years=f["years"],
+                                       fleet_scale=f["fleet_scale"])
+    specs = [arbiter.TenantSpec(n, sla_weight=1.0) for n in ("early", "late")]
+    texts, sweep_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = capacity.sweep_frontier(lambda: _skewflip(f["n_regions"], f["accesses"], f["flip"]),
+                                      specs, planner, windows=f["windows"],
+                                      warmup_windows=f["warmup"], seed=f["seed"])
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+        texts.append(capacity.frontier_json(res))
+    margin = res.get("dominance_margin_pct")
+    if texts[0] != texts[1] or not res["monotone"] or not res.get("dominates_2t") \
+            or margin is None or margin < DOMINANCE_FLOOR:
+        fail(f"{what}: equal {texts[0] == texts[1]}, monotone {res['monotone']}, dominates 2T "
+             f"{res.get('dominates_2t')} by {margin} (floor {DOMINANCE_FLOOR})")
+    # The README's co-hosting example, each end_window timed.
+    arb = arbiter.BudgetArbiter(
+        [arbiter.TenantSpec("frontend", sla_weight=2.0, alpha_floor=0.2),
+         arbiter.TenantSpec("batch", sla_weight=0.5)],
+        [make_manager("6T-AM-0.5", 4096, seed=t) for t in range(2)], alpha=0.5,
+        tier_capacity_regions=np.array([4096] + [np.inf] * 5))
+    end_ms, end = [], arb.end_window
+
+    def timed_end_window():
+        t0 = time.perf_counter()
+        plans = end()
+        end_ms.append((time.perf_counter() - t0) * 1e3)
+        return plans
+    arb.end_window = timed_end_window
+    t0 = time.perf_counter()
+    sim = simulator.simulate_multitenant([simulator.gaussian_kv(n_regions=4096, name="frontend"),
+                                          simulator.uniform_scan(n_regions=4096, name="batch")],
+                                         arb, windows=40)
+    sim_ms = (time.perf_counter() - t0) * 1e3
+    return {"frontier_sha256": hashlib.sha256(texts[0].encode()).hexdigest(),
+            "frontier_configs": [p["config"] for p in res["frontier"]],
+            "dominance_margin_pct": margin, "monotone": res["monotone"],
+            "model_outputs": {"baseline_2t": res["baseline_2t"], "frontier": res["frontier"]},
+            "sweep_host_ms": sweep_ms, "readme_simulate_multitenant_host_ms": sim_ms,
+            "readme_end_window_host_ms": {"mean": float(np.mean(end_ms)),
+                                          "max": float(np.max(end_ms)), "windows": len(end_ms)},
+            "readme_fleet_savings_pct_model": sim.fleet_savings_pct}
+
+
+def phase_multitenant(cfg, model, params, fstats) -> dict:
+    out = {"cache": phase_mt_cache(cfg), "engine": phase_mt_engine(cfg, model, params),
+           "chain": phase_mt_chain(fstats), "frontier": phase_mt_frontier()}
+    log(f"phase 2i ok (multi-tenancy, qwen1_5_4b full width): {json.dumps(out)}")
     return out
 
 
@@ -1878,12 +2185,13 @@ def main() -> int:
     mamba2 = phase_mamba2()
     model, params = init_params(cfg)
     preempt = phase_preempt(cfg, model, params)
-    frontend = phase_frontend(cfg, model, params)
-    del model, params
-    free_device()
+    frontend, fstats = phase_frontend(cfg, model, params)
     new_phases_s = time.perf_counter() - t0
     walls["2d-2f"] = new_phases_s
     log(f"phases 2d-2f took {new_phases_s:.1f} s")
+    multitenant = timed("2i", phase_multitenant, cfg, model, params, fstats)
+    del model, params, fstats
+    free_device()
     t0 = time.perf_counter()
     q3model, q3params = init_params(q3cfg)
     (q3eng, q3counts, q3pp_counts, q3metrics, q3spies, q3state, q3compares,
@@ -1947,11 +2255,13 @@ def main() -> int:
             z = rows.pop(k["name"])
             k[key] = {f: z[f] for f in fields if f in z}
     kernels += list(zrows.values())
-    # Launches on the preemption (2e), frontend (2f), MoE (2g) and one-step
-    # (2b) paths, each counted from 0 over its own run.
+    # Launches on the preemption (2e), frontend (2f), MoE (2g), one-step
+    # (2b) and multi-tenant (2i) paths, each counted from 0 over its own run.
     for k in kernels:
         k["preempt_launches"] = preempt["launches"][k["name"]]
         k["frontend_launches"] = frontend["launches"][k["name"]]
+        k["multitenant_launches"] = multitenant["engine"]["launches"][k["name"]]
+        k["multitenant_cache_launches"] = multitenant["cache"]["launches"][k["name"]]
         k["moe_launches"] = moe_counts[k["name"]]
         k["one_step_launches"] = {a: o["launches"][k["name"]] for a, o in one_step.items()}
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
@@ -1967,6 +2277,7 @@ def main() -> int:
                                      **{f"qwen3_32b_{k}": v for k, v in q3compares.items()}},
                     "one_step": one_step, "mamba2_780m": mamba2, "preempt": preempt,
                     "frontend": frontend, "phases_2d_2f_s": new_phases_s,
+                    "multitenant": multitenant,
                     "qwen3_moe_235b": moe_metrics, "hubert_xlarge": hubert,
                     "phase_wall_s": walls,
                     "modes": modes, "decode_step_profile": prof,

@@ -1,15 +1,17 @@
 """Host-side slot management for the compressed device pools.
 
-Mirrors ``SlotAllocator``, ``exchange_slots`` and the codec-class-major
-``PoolRange``/``ClassPartition`` of ``repro.core.pools``. Allocation policy
-runs on the host (it is part of the daemon tax) and only integer class-row
-indices reach the device page tables.
+Mirrors ``SlotAllocator``, ``exchange_slots``, the codec-class-major
+``PoolRange``/``ClassPartition`` and the arbiter's ``TenantLedger`` of
+``repro.core.pools``. Allocation policy runs on the host (it is part of the
+daemon tax) and only integer class-row indices reach the device page tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 class SlotAllocator:
@@ -146,3 +148,55 @@ class ClassPartition:
 
     def class_rows(self, bits: int) -> int:
         return max(self._rows.get(int(bits), 0), 1)
+
+
+class TenantLedger:
+    """Per-tenant region accounting + reservations on shared tier pools.
+
+    Tracks, per (tenant, placement index), how many regions the tenant holds
+    (``usage``, written by the arbiter each window) and how many it has
+    reserved ahead of migration (``reserved``). Capacity is fleet-wide per
+    tier; ``headroom``/``oversubscribed`` are what the arbiter's capacity
+    reconciliation enforces.
+    """
+
+    def __init__(self, tenants: Sequence[str], capacity_regions: np.ndarray):
+        self.tenants = list(tenants)
+        self._idx = {t: i for i, t in enumerate(self.tenants)}
+        if len(self._idx) != len(self.tenants):
+            raise ValueError("tenant names must be unique")
+        self.capacity = np.asarray(capacity_regions, dtype=np.float64)
+        self.usage = np.zeros((len(self.tenants), self.capacity.size), dtype=np.int64)
+        self.reserved = np.zeros_like(self.usage)
+
+    def index(self, tenant: str) -> int:
+        return self._idx[tenant]
+
+    def set_usage(self, tenant: str, per_tier_regions: np.ndarray) -> None:
+        per_tier_regions = np.asarray(per_tier_regions, dtype=np.int64)
+        if per_tier_regions.shape != (self.capacity.size,):
+            raise ValueError("usage vector must have one entry per placement index")
+        self.usage[self._idx[tenant]] = per_tier_regions
+
+    def reserve(self, tenant: str, tier: int, n_regions: int = 1) -> bool:
+        """Reserve migration headroom; False when the tier cannot hold it."""
+        if self.headroom(tier) < n_regions:
+            return False
+        self.reserved[self._idx[tenant], tier] += n_regions
+        return True
+
+    def release(self, tenant: str, tier: int, n_regions: int = 1) -> None:
+        t = self._idx[tenant]
+        self.reserved[t, tier] = max(self.reserved[t, tier] - n_regions, 0)
+
+    def headroom(self, tier: int) -> float:
+        return float(
+            self.capacity[tier] - self.usage[:, tier].sum() - self.reserved[:, tier].sum()
+        )
+
+    def tenant_usage(self, tenant: str) -> np.ndarray:
+        return self.usage[self._idx[tenant]].copy()
+
+    def oversubscribed(self) -> np.ndarray:
+        """Per-tier bool: committed usage + reservations exceed capacity."""
+        return (self.usage.sum(axis=0) + self.reserved.sum(axis=0)) > self.capacity

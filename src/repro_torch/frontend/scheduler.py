@@ -21,8 +21,8 @@ Preempted requests resume via ``resume_into`` — host pages swap back in
 through the same cohort machinery, zero tokens re-prefilled. Per-window
 decoded-token demand per tenant accumulates in ``demand_windows``;
 ``feed_arbiter`` pushes it into any object with a
-``record_scheduled_demand(dict)`` method (the reference's
-``BudgetArbiter``; the port's arbiter is a later slice, ROADMAP item 6).
+``record_scheduled_demand(dict)`` method (``core.arbiter.BudgetArbiter``,
+whose ``fleet_report`` then prices fleets against it).
 
 A replica failure (``fail_replica``) parks the dead replica's running slots
 bit-exactly and resumes them on a live replica: the parked KV is host memory

@@ -40,6 +40,11 @@ class MediaDevice:
         if self.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
 
+    def service_time_s(self, n_bytes: int, write: bool = False) -> float:
+        """Uncontended transfer time for one op of ``n_bytes``."""
+        bw = self.write_bw if write else self.read_bw
+        return self.fixed_latency_s + n_bytes / bw
+
     def batch_service_time_s(
         self, n_bytes: int, ops: int = 1, write: bool = False
     ) -> float:
@@ -136,6 +141,10 @@ class AdaptiveMediaDevice:
     def queue_depth(self) -> int:
         return self.base.queue_depth
 
+    def service_time_s(self, n_bytes: int, write: bool = False) -> float:
+        bw = self.write_bw if write else self.read_bw
+        return self.fixed_latency_s + n_bytes / bw
+
     def batch_service_time_s(
         self, n_bytes: int, ops: int = 1, write: bool = False
     ) -> float:
@@ -198,6 +207,11 @@ class MediaQueue:
         self.bytes_total += int(n_bytes)
         self.ops += ops
         return start, done
+
+    def utilization(self, elapsed_s: float) -> float:
+        """Fraction of one channel's time spent transferring (can exceed 1
+        on multi-channel devices under heavy load; callers clip)."""
+        return self.busy_s / max(elapsed_s, 1e-30)
 
 
 def make_queues(names) -> Dict[str, MediaQueue]:

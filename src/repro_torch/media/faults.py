@@ -195,6 +195,12 @@ class FaultyMediaDevice:
     def down_now(self) -> bool:
         return self.plan.down(self.name, self._window)
 
+    def service_time_s(self, n_bytes: int, write: bool = False) -> float:
+        base = self.base.service_time_s(n_bytes, write=write)
+        return base / self.plan.bw_scale(self.name, self._window) + self.plan.stall_s(
+            self.name, self._window
+        )
+
     def batch_service_time_s(self, n_bytes: int, ops: int = 1, write: bool = False) -> float:
         # Brownout dilates the whole service (the fixed term too); stall
         # bills per op.

@@ -559,3 +559,18 @@ class MigrationPipeline:
         idx = torch.as_tensor(c.ring_slots, dtype=torch.int64)
         n = int(self.ring._fill[c.ring_slots[0]])
         return _split_rows(self.ring.buf[idx, :n], c.meta)
+
+    # ---------------------------------------------------------------- views
+    def media_busy_s(self) -> Dict[str, float]:
+        """Modeled busy seconds per device queue (the reference's media
+        constants, not a time measured on any device)."""
+        return {name: q.busy_s for name, q in self.queues.items()}
+
+    def media_bytes(self) -> Dict[str, int]:
+        return {name: q.bytes_total for name, q in self.queues.items()}
+
+    def prefetch_hit_rate(self) -> float:
+        """Hits / (hits + misses) over everything that reached the held
+        store and met a window boundary."""
+        denom = self.prefetch_hits + self.prefetch_misses
+        return self.prefetch_hits / denom if denom else 0.0

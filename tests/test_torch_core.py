@@ -173,8 +173,9 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    for mod in ("moe", "inputs"):
-        assert ROOT / "src" / "repro_torch" / "models" / f"{mod}.py" in files
+    for mod in ("models/moe", "models/inputs", "core/simulator", "core/arbiter",
+                "core/capacity", "quickstart"):
+        assert ROOT / "src" / "repro_torch" / f"{mod}.py" in files
     bad = []
     for f in files:
         for mod in _imports(f):

@@ -240,6 +240,13 @@ def test_engine_mode_matches_reference(models, mode):
         assert getattr(ts, f) == getattr(js, f), f
     assert ts.overlapped_steps > 0 and ts.migrations > 0
     assert ts.prefetch_staged == ts.prefetch_hits + ts.prefetch_misses
+    # The reference has no count of held pages invalidated under their
+    # shadow copy (the port's ``prefetch_invalidated``): there they are the
+    # staged pages that met no boundary.
+    tp, jp = te.cache.pipeline, je.cache.pipeline
+    assert tp.prefetch_invalidated == jp.prefetch_staged - jp.prefetch_hits - jp.prefetch_misses
+    assert tp.prefetch_cancelled == jp.prefetch_cancelled
+    assert tp.prefetch_hit_rate() == jp.prefetch_hit_rate()
     assert te.cache.kernel_dispatches == je.cache.kernel_dispatches
     for f in ("fault_retries", "cohorts_aborted", "corruptions_injected",
               "corruptions_detected", "corruptions_repaired", "pages_moved", "cohorts_done"):

@@ -180,6 +180,30 @@ def test_faulty_device_matches_reference():
         assert td.down_now() == jd.down_now()
 
 
+@pytest.mark.parametrize("name", sorted(jdevices.DEVICES))
+def test_service_times_and_utilization_match_reference(name):
+    """The single-op ``service_time_s`` of the plain, adaptive and faulty
+    devices, and ``MediaQueue.utilization``."""
+    plan_args = [("stall", name, 1, -1, 5e-6, 1.0, 0), ("brownout", name, 2, -1, 0.0, 0.5, 0)]
+    tq, jq = devices.make_queues([name])[name], jdevices.make_queues([name])[name]
+    pairs = [(devices.get(name), jdevices.get(name)), (tq.device, jq.device),
+             (faults.FaultyMediaDevice(tq.device, faults.FaultPlan(
+                 [faults.FaultEvent(*a) for a in plan_args])),
+              jfaults.FaultyMediaDevice(jq.device, jfaults.FaultPlan(
+                  [jfaults.FaultEvent(*a) for a in plan_args])))]
+    for w in range(4):
+        pairs[2][0].note_window(w)
+        pairs[2][1].note_window(w)
+        for td, jd in pairs:
+            for nb, write in ((4096, False), (1 << 20, True), (0, False)):
+                assert td.service_time_s(nb, write=write) == jd.service_time_s(nb, write=write)
+    for i in range(6):
+        tq.submit(1 << (10 + i), now=i * 1e-5, write=bool(i % 2))
+        jq.submit(1 << (10 + i), now=i * 1e-5, write=bool(i % 2))
+        for elapsed in (0.0, 1e-5 * (i + 1), 1.0):
+            assert tq.utilization(elapsed) == jq.utilization(elapsed)
+
+
 # ---------------------------------------------------------------------------
 # the port's async pipeline vs the port's serial executor
 # ---------------------------------------------------------------------------
