@@ -10,7 +10,9 @@ decode steps of ``internlm2_20b``, ``command_r_35b``, ``dbrx_132b`` and
 resumes a ``qwen1_5_4b`` request through the host tier, serves a burst
 trace through the SLA-aware frontend over two ``qwen1_5_4b`` replicas, one
 of which fails, and serves two tenants on one ``qwen1_5_4b`` engine, their
-scheduled demand priced by the budget arbiter and the capacity planner.
+scheduled demand priced by the budget arbiter and the capacity planner;
+and first of all trains: full-width ``qwen1_5_4b`` train steps with tiered
+Adam, a checkpoint resume and one ``qwen3_moe_235b`` layer's step.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
@@ -24,6 +26,19 @@ Phases (any failure exits non-zero before the result line):
      group 16); quant/transcode/dequant/cxl encode/cxl decode byte-equal,
      fused and per-pool attention within 2e-4, the per-pool one with an
      empty pool and tails past ``n_pages``);
+  2j. the training path, on the empty card, before any engine: full-width,
+     full-depth ``qwen1_5_4b`` (3.95 B params) on 2 x 512-token batches
+     from ``HostLoader``, ``make_train_step`` with tiered Adam under
+     ``default_policy`` and remat, the reference example's optimizer (lr
+     3e-4 after a 20-step warmup): two steps on one batch descend, then 6
+     loader steps with finite losses and grad norms, ``moment_bytes`` equal
+     to its formula; prints step ms (mean of steps 2-6), tokens/s and peak
+     memory. At 2 layers (full width): 4 steps straight against 2 steps, an
+     async save, a restore into fresh state (bit-equal, on the card) and 2
+     more, losses within 1e-3 (bit-equal reported). One ``qwen3_moe_235b``
+     layer: a step with the int8 wire on, both wires' input gradients
+     nonzero and finite, the wire's backward on the card equal to the CPU's
+     on the step's cotangent. No kernel is launched (counted from 0);
   2b. ``internlm2_20b`` (group 6), ``command_r_35b`` (group 8, tied 256k
      head), ``dbrx_132b`` (MoE, 16 experts top 4) and ``qwen2_vl_72b``
      (M-RoPE, QKV biases) at full width and depth 4: prefill of one
@@ -142,7 +157,8 @@ The ``kernels`` line lists all seven kernels (launches from the main-path
 run that drives each, and from the preemption, frontend, MoE, one-step and
 multi-tenant runs as ``preempt_launches``/``frontend_launches``/
 ``moe_launches``/``one_step_launches``/``multitenant_launches`` (the
-engine) and ``multitenant_cache_launches``; kernels 1-5 also carry their times at the
+engine) and ``multitenant_cache_launches``, and from phase 2j as
+``train_launches``; kernels 1-5 also carry their times at the
 ``qwen3_moe_235b`` shapes, ``at_qwen3_moe_235b``). The last line is the JSON result
 ``{"ok": true, "device": {...}}``.
 """
@@ -153,8 +169,10 @@ import dataclasses
 import gc
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,9 +182,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.configs import TierScapeRunConfig, get  # noqa: E402
+from repro_torch import pytree  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import ParallelConfig, TierScapeRunConfig, get  # noqa: E402
 from repro_torch.core import arbiter, capacity, simulator  # noqa: E402
 from repro_torch.core.manager import ManagerConfig, make_manager  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, HostLoader, synthetic_corpus  # noqa: E402
 from repro_torch.frontend import ContinuousScheduler, TraceConfig, generate  # noqa: E402
 from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
@@ -174,7 +195,10 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.media.faults import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.models import Model, attention, inputs, moe  # noqa: E402
 from repro_torch.models.transformer import _attn_layer_count  # noqa: E402
+from repro_torch.optim import tiered_adam  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
+from repro_torch.runtime.train import make_train_step  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import TieredEngine  # noqa: E402
 
@@ -242,6 +266,21 @@ MT_TENANTS, MT_PROMPTS, MT_NEW, MT_WINDOW, MT_ALPHA = (0, 1, 0, 1), (400, 601), 
 FRONTIER = dict(n_regions=512, accesses=200_000, flip=8, windows=16, warmup=2,
                 server="v5e-base", years=3.0, fleet_scale=256, seed=0)
 DOMINANCE_FLOOR = 22.0  # savings points over 2T: benchmarks/baseline_guard.py:86
+# Phase 2j: training. qwen1_5_4b at full width and depth on 2 x 512-token
+# batches from HostLoader, tiered Adam under default_policy (int8 moments on
+# embed/lm_head, f32 elsewhere), remat on, and examples/train_tiered_lm.py's
+# optimizer (lr 3e-4, cosine_schedule(20, 200): the first steps are warmup;
+# a constant 1e-3, tests/test_archs.py's SMOKE rate, raised the full-width
+# loss from 12.09 to 15.43 on the same batch on an H100); two steps on one
+# batch, then TRAIN_STEPS from the loader. The resume check runs at
+# RESUME_LAYERS (full width): RESUME_STEPS straight, against half of them,
+# an async save, a restore into fresh state and the rest; the losses agree
+# within RESUME_RTOL (they are bit-equal where every kernel of the step is
+# deterministic). The MoE step runs one qwen3_moe_235b layer.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 6
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 20, 200
+RESUME_LAYERS, RESUME_STEPS, RESUME_RTOL = 2, 4, 1e-3
+TRAIN_MOE_LAYERS = 1
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
@@ -2105,6 +2144,243 @@ def phase_multitenant(cfg, model, params, fstats) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 2j
+def moment_bytes_formula(params, policy) -> int:
+    """The tiered state's bytes from the shapes alone: m and v in their
+    codecs (int4's v at int8), each int8/int4 leaf with an f32 scale per
+    group of ``group_for(last dim)`` along its padded last axis."""
+    total = 0
+    for path, p in pytree.leaves_with_path(params):
+        for codec in (policy[path], "int8" if policy[path] == "int4" else policy[path]):
+            if codec in ("none", "bf16"):
+                total += p.numel() * (4 if codec == "none" else 2)
+                continue
+            last = p.shape[-1] if p.dim() else 1
+            grp = tiered_adam.group_for(last)
+            padded = -(-last // grp) * grp
+            rows = p.numel() // last
+            total += rows * padded // (1 if codec == "int8" else 2) + rows * (padded // grp) * 4
+    return total
+
+
+def _device_batch(batch_np) -> dict:
+    return {k: torch.as_tensor(v, device=DEV) for k, v in batch_np.items()}
+
+
+def train_optimizer() -> AdamWConfig:
+    """examples/train_tiered_lm.py's optimizer at its default length."""
+    return AdamWConfig(lr=TRAIN_LR, schedule=cosine_schedule(TRAIN_WARMUP, TRAIN_TOTAL))
+
+
+def _train_setup(cfg):
+    model = Model(cfg, ParallelConfig(), device=DEV)
+    params = model.init(SEED)
+    policy = tiered_adam.default_policy(params)
+    opt = tiered_adam.init(params, policy)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    example = _device_batch(synthetic_corpus(dcfg, 0))
+    step = make_train_step(model, train_optimizer(), ParallelConfig(), example,
+                           tiered_policy=policy).fn
+    return model, params, policy, opt, dcfg, step
+
+
+def phase_train() -> dict:
+    """Full-width, full-depth qwen1_5_4b train steps (see TRAIN_*)."""
+    cfg = get("qwen1_5_4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, policy, opt, dcfg, step = _train_setup(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in pytree.leaves(params))
+    want = moment_bytes_formula(params, policy)
+    got = tiered_adam.moment_bytes(opt)
+    if got != want:
+        fail(f"train: moment_bytes {got} != its formula {want}")
+    compressed = sorted(k for k, c in policy.items() if c != "none")
+    if compressed != ["embed", "lm_head"]:
+        fail(f"train: default_policy compresses {compressed}")
+    loader = HostLoader(dcfg)
+    try:
+        same = _device_batch(next(loader))
+        first = []
+        for _ in range(2):
+            params, opt, m = step(params, opt, same)
+            first.append({k: float(v) for k, v in m.items()})
+        if not first[1]["loss"] < first[0]["loss"]:
+            fail(f"train: two steps on one batch did not descend: {first}")
+        runs, times = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, _device_batch(next(loader)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            runs.append({k: float(v) for k, v in m.items()})
+    finally:
+        loader.close()
+    bad = [r for r in first + runs if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
+    if bad:
+        fail(f"train: non-finite loss or grad_norm: {bad}")
+    step_ms = float(np.mean(times[1:]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "setup_s": setup_s,
+           "same_batch_losses": [r["loss"] for r in first],
+           "losses": [r["loss"] for r in runs], "grad_norms": [r["grad_norm"] for r in runs],
+           "step_ms": times, "step_ms_mean_2_n": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "moment_bytes": got, "moment_bytes_f32_baseline": n_params * 8,
+           "param_bytes": sum(p.numel() * p.element_size() for p in pytree.leaves(params)),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "stragglers": loader.straggler_events}
+    del model, params, opt, step
+    free_device()
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(pytree.leaves(a), pytree.leaves(b)))
+
+
+def phase_train_resume() -> dict:
+    """RESUME_STEPS straight against a save/restore halfway, at depth
+    RESUME_LAYERS; the checkpoint round trip of the card's tensors must be
+    bit-equal."""
+    cfg = dataclasses.replace(get("qwen1_5_4b"), n_layers=RESUME_LAYERS)
+    half = RESUME_STEPS // 2
+
+    def losses(params, opt, step, start, n):
+        out = []
+        loader = HostLoader(dcfg, start_step=start)
+        try:
+            for _ in range(n):
+                params, opt, m = step(params, opt, _device_batch(next(loader)))
+                out.append(float(m["loss"]))
+        finally:
+            loader.close()
+        return params, opt, out
+
+    _, params, _, opt, dcfg, step = _train_setup(cfg)
+    _, _, straight = losses(params, opt, step, 0, RESUME_STEPS)
+    _, params, _, opt, _, step = _train_setup(cfg)
+    params, opt, before = losses(params, opt, step, 0, half)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(half, {"params": params, "opt": opt}, blocking=False)
+        save_call_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        _, fresh_params, _, fresh_opt, _, step = _train_setup(cfg)
+        t0 = time.perf_counter()
+        at, restored = mgr.restore({"params": fresh_params, "opt": fresh_opt})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if at != half or not (_same_tree(restored["params"], params)
+                          and _same_tree(restored["opt"], opt)
+                          and restored["opt"].policy == opt.policy):
+        fail("train resume: the restored state is not bit-equal to the saved one")
+    if any(t.device.type != torch.device(DEV).type for t in pytree.leaves(restored)):
+        fail("train resume: a restored leaf is not on the card")
+    del params, opt, fresh_params, fresh_opt
+    _, _, after = losses(restored["params"], restored["opt"], step, half, RESUME_STEPS - half)
+    resumed = before + after
+    worst = max(abs(a - b) / abs(a) for a, b in zip(straight, resumed))
+    if not worst <= RESUME_RTOL or not all(np.isfinite(straight + resumed)):
+        fail(f"train resume: losses {resumed} against {straight} (rel {worst})")
+    out = {"layers": RESUME_LAYERS, "straight": straight, "resumed": resumed,
+           "max_rel_diff": worst, "bit_equal": straight == resumed,
+           "checkpoint_bytes": ckpt_bytes, "save_call_ms": save_call_ms,
+           "save_ms": save_ms, "restore_ms": restore_ms}
+    del restored, step
+    free_device()
+    return out
+
+
+def phase_train_moe() -> dict:
+    """One qwen3_moe_235b layer at full width (128 experts, top 8): a train
+    step with the int8 wire on. The gradient reaching each wire's input is
+    nonzero and finite, and the wire's backward on the card equals its CPU
+    run on the cotangent the step gave the expert outputs' wire."""
+    cfg = dataclasses.replace(get("qwen3_moe_235b"), n_layers=TRAIN_MOE_LAYERS)
+    if not moe.A2A_WIRE_INT8:
+        fail("train moe: the int8 wire is off")
+    wire_in, wire_out = [], []
+    make = moe.make_wire_transfer
+
+    def spy():
+        transfer = make()
+
+        def f(x):
+            if x.requires_grad:
+                x.register_hook(lambda g: wire_in.append(g.detach()))
+            y = transfer(x)
+            if y.requires_grad:
+                y.register_hook(lambda g: wire_out.append((x.detach(), g.detach())))
+            return y
+        return f
+
+    moe.make_wire_transfer = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _, params, policy, opt, dcfg, step = _train_setup(cfg)
+        loader = HostLoader(dcfg)
+        try:
+            batch = _device_batch(next(loader))
+        finally:
+            loader.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.make_wire_transfer = make
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"train moe: non-finite metrics {metrics}")
+    grads_in = [float(g.float().abs().max()) for g in wire_in]
+    if len(grads_in) != 2 * TRAIN_MOE_LAYERS or not all(np.isfinite(g) and g > 0
+                                                        for g in grads_in):
+        fail(f"train moe: expert-input gradients {grads_in}")
+    x, g = wire_out[0]
+    xc = x.cpu().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    (cpu_g,) = torch.autograd.grad(moe.make_wire_transfer()(xc), xc, g.cpu())
+    (gpu_g,) = torch.autograd.grad(moe.make_wire_transfer()(xg), xg, g)
+    if not torch.equal(gpu_g.cpu(), cpu_g):
+        fail("train moe: the wire's backward on the card differs from the CPU's")
+    out = {"arch": cfg.name, "layers": TRAIN_MOE_LAYERS, "metrics": metrics,
+           "step_ms": step_ms, "wire_input_grad_max": grads_in,
+           "wire_cotangent_shape": list(g.shape), "wire_backward_equal_to_cpu": True,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt, step, wire_in, wire_out, x, g, xg, gpu_g
+    free_device()
+    return out
+
+
+def phase_training() -> dict:
+    """Phase 2j: the training path, counting kernel launches from 0 (it
+    launches none)."""
+    spies = install_spies()
+    reset_counts(spies)
+    try:
+        out = {"train": phase_train(), "resume": phase_train_resume(), "moe": phase_train_moe()}
+        counts = read_counts(spies)
+    finally:
+        remove_spies(spies)
+    if any(counts.values()):
+        fail(f"train: the training path launched kernels: {counts}")
+    out["launches"] = counts
+    log(f"phase 2j ok (training): {json.dumps(out)}")
+    return out
+
+
 def reckon_memory(cfg, params, eng) -> dict:
     """Bytes of this run's weights and tiered KV state, from their sizes, and
     what full depth would need: layer weights scale with depth, the class
@@ -2173,6 +2449,9 @@ def main() -> int:
         q3errs[name] = max(q3errs[name], e)
     merrs = phase_compare(mcfg)
     walls["2"] = time.perf_counter() - t0
+
+    # Training first, on an empty card and before any profile (phase 7).
+    training = timed("2j", phase_training)
 
     # The GQA, MoE and VLM archs first, on an empty card (phases 2b, 2g);
     # the encoder, the SSM family, preemption and the frontend (phases 2h,
@@ -2264,6 +2543,7 @@ def main() -> int:
         k["multitenant_cache_launches"] = multitenant["cache"]["launches"][k["name"]]
         k["moe_launches"] = moe_counts[k["name"]]
         k["one_step_launches"] = {a: o["launches"][k["name"]] for a, o in one_step.items()}
+        k["train_launches"] = training["launches"][k["name"]]
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,
                                             "zamba2_cxl_hw": zmetrics,
@@ -2277,7 +2557,7 @@ def main() -> int:
                                      **{f"qwen3_32b_{k}": v for k, v in q3compares.items()}},
                     "one_step": one_step, "mamba2_780m": mamba2, "preempt": preempt,
                     "frontend": frontend, "phases_2d_2f_s": new_phases_s,
-                    "multitenant": multitenant,
+                    "multitenant": multitenant, "training": training,
                     "qwen3_moe_235b": moe_metrics, "hubert_xlarge": hubert,
                     "phase_wall_s": walls,
                     "modes": modes, "decode_step_profile": prof,

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, TierScapeRunConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, TierScapeRunConfig
 
 ARCH_IDS = [
     "qwen1_5_4b", "zamba2_1_2b", "qwen3_32b", "internlm2_20b", "command_r_35b", "mamba2_780m",
@@ -31,4 +31,4 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "TierScapeRunConfig", "get", "get_smoke"]
+__all__ = ["ARCH_IDS", "ModelConfig", "ParallelConfig", "TierScapeRunConfig", "get", "get_smoke"]

@@ -178,6 +178,26 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How the model maps onto the (pod, data, model) mesh, the reference's
+    fields. The port runs on one device, where only ``remat`` (checkpoint
+    each layer: less activation memory, the same numbers) and
+    ``grad_accum`` act. ``fsdp``, ``scan_layers``, ``shard_kv_seq`` and
+    ``grad_compress_pods`` are accepted and do nothing, as on the
+    reference's 1-device mesh (the port's layers always run as a loop)."""
+
+    fsdp: bool = False  # shard params/opt-state over the data axis too
+    remat: str = "block"  # "none" | "block" (checkpoint each layer)
+    scan_layers: bool = True
+    # Sequence-parallel KV sharding for decode (long context).
+    shard_kv_seq: bool = False
+    # Gradient compression for the cross-pod reduce (int8 + error feedback).
+    grad_compress_pods: bool = False
+    # Microbatching (gradient accumulation steps).
+    grad_accum: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class TierScapeRunConfig:
     """TierScape engagement for a run."""
 

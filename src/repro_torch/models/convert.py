@@ -14,9 +14,9 @@ import torch
 
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(arr))
-    if not a.flags.writeable:  # jax hands out read-only buffers
-        a = a.copy()
+    a = np.asarray(arr)
+    if not (a.flags.c_contiguous and a.flags.writeable):  # jax hands out read-only buffers
+        a = np.array(a, order="C")  # (np.ascontiguousarray would make a 0-d array 1-d)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:

@@ -77,7 +77,10 @@ def _wire_quant(x: torch.Tensor):
     least 1e-20), an IEEE divide, round half to even, clip to +-127."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax / 127.0, min=1e-20)
+    # A divisor on the tensor's device: CUDA multiplies by the reciprocal of
+    # a Python scalar divisor, which rounds apart from the CPU's (and the
+    # reference's) division.
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-20)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -86,17 +89,27 @@ def _wire_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+class _WireTransfer(torch.autograd.Function):
+    """Forward: the int8 round trip of ``x``. Backward: the same round trip
+    of the cotangent (the reference's custom VJP sends it down the mirrored
+    int8 path). Without it, ``round`` has a zero gradient and nothing
+    reaches the experts' inputs: training breaks without an error."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _wire_dequant(*_wire_quant(x), x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wire_dequant(*_wire_quant(g), g.dtype)
+
+
 def make_wire_transfer():
     """The int8-compressed transfer around the expert all-to-all: on one
     device, quantize then dequantize (the reference pins the payload to the
-    source and target shardings in between). Forward only: the reference's
-    custom VJP (the cotangent on the mirrored int8 path) comes with
-    training, which the port does not run yet."""
-
-    def transfer(x: torch.Tensor) -> torch.Tensor:
-        return _wire_dequant(*_wire_quant(x), x.dtype)
-
-    return transfer
+    source and target shardings in between), with the reference's backward
+    (``_WireTransfer``)."""
+    return _WireTransfer.apply
 
 
 @contextlib.contextmanager

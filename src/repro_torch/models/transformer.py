@@ -5,16 +5,20 @@ pure-SSM family (Mamba2: a stack of SSD blocks, no attention) and the hybrid
 family (Zamba2: a Mamba2 backbone plus one weight-shared attention + MLP
 block applied every ``hybrid_attn_every`` layers), behind one API:
 
-    model = Model(cfg, device="cuda")
+    model = Model(cfg, parallel=None, device="cuda")
     params = model.init(seed)                        # torch generator
     logits, aux = model.forward(params, batch)       # full sequence
+    loss, metrics = model.loss(params, batch)        # differentiable
     state = model.init_cache(batch, max_len)         # decode state (decoders)
     logits, state = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, tok, state)
 
 Parameters are a plain dictionary in the reference layout: block weights
 are stacked with a leading layer dim, and the layers run as a Python loop
-(the reference's ``lax.scan``).
+(the reference's ``lax.scan``). When the forward builds a graph (some
+parameter requires grad), each layer runs under activation checkpointing
+unless ``parallel.remat`` is ``"none"``, as the reference's scan body runs
+under ``jax.checkpoint``: less memory, the same numbers.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import dataclasses
 from typing import Any, Dict, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mlp, moe, ssm
@@ -97,6 +103,17 @@ def layer_params(tree, li: int):
     return tree[li]
 
 
+def unstack_layers(tree) -> list:
+    """Every layer of layer-stacked parameters, each a tree of views: one
+    ``torch.unbind`` per leaf, whose backward is one ``stack``. (The
+    backward of ``layer_params``' indexing zero-fills a whole [L, ...]
+    gradient per layer and leaf.)"""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v) for k, v in tree.items()}
+        return [dict(zip(per_key, layer)) for layer in zip(*per_key.values())]
+    return list(torch.unbind(tree, 0))
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Every family of the reference is ported; an unknown one raises, as
     the reference's ``Model.init`` does."""
@@ -139,9 +156,10 @@ class Model:
     """Family-dispatching model (pure functions over a parameter dict +
     config)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, parallel=None, device="cuda"):
         check_supported(cfg)
         self.cfg = cfg
+        self.parallel = parallel  # ParallelConfig or None
         self.device = resolve_device(device)
 
     def init(self, gen: Union[int, torch.Generator] = 0, dtype=torch.bfloat16) -> Dict[str, Any]:
@@ -226,18 +244,22 @@ class Model:
         x = self._embed_inputs(params, batch)
         bsz, seq = x.shape[0], x.shape[1]
         positions = self._positions(batch, seq, bsz, x.device)
+        run = self._block_runner(params)
+        blocks = unstack_layers(params["blocks"])
         aux: Dict[str, torch.Tensor] = {}
         if cfg.family == "hybrid":
-            x = self._hybrid_forward(params, x, positions)
+            for group in ssm_groups(cfg):
+                x = run(transformer_block, params["shared"], cfg, x, positions)[0]
+                for li in group:
+                    x = run(ssm_block_fwd, blocks[li], cfg, x)
         elif cfg.family == "ssm":
-            for li in range(cfg.n_layers):
-                x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
+            for blk in blocks:
+                x = run(ssm_block_fwd, blk, cfg, x)
         else:
             lb = torch.zeros((), dtype=torch.float32, device=x.device)
             z = torch.zeros((), dtype=torch.float32, device=x.device)
-            for li in range(cfg.n_layers):
-                x, blk_aux = transformer_block(layer_params(params["blocks"], li), cfg, x,
-                                               positions)
+            for blk in blocks:
+                x, blk_aux = run(transformer_block, blk, cfg, x, positions)
                 if cfg.family == "moe":
                     lb = lb + blk_aux["load_balance"]
                     z = z + blk_aux["router_z"]
@@ -245,15 +267,40 @@ class Model:
         x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         return self._head(params, x), aux
 
-    def _hybrid_forward(self, params, x, positions) -> torch.Tensor:
-        """Zamba2: Mamba2 backbone + one weight-shared transformer block
-        applied every ``hybrid_attn_every`` layers."""
-        cfg = self.cfg
-        for group in ssm_groups(cfg):
-            x = transformer_block(params["shared"], cfg, x, positions)[0]
-            for li in group:
-                x = ssm_block_fwd(layer_params(params["blocks"], li), cfg, x)
-        return x
+    def _block_runner(self, params):
+        """How ``forward`` runs a block: under activation checkpointing when
+        the call builds a graph and ``remat`` is on (the reference's default,
+        ``parallel is None or parallel.remat == "block"``), else directly.
+        Nothing in a block draws random numbers, so no RNG state is kept."""
+        remat = self.parallel is None or self.parallel.remat == "block"
+        if not (remat and torch.is_grad_enabled()
+                and any(t.requires_grad for t in pytree.leaves(params))):
+            return lambda fn, *args: fn(*args)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch: Dict[str, torch.Tensor], moe_lb_weight: float = 0.01,
+             moe_z_weight: float = 1e-3) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Masked mean next-token NLL over an f32 ``log_softmax`` (plus, for
+        the MoE family, the weighted load-balance and router-z losses).
+        Returns (total, metrics: ``ce``, ``loss`` and the MoE aux)."""
+        logits, aux = self.forward(params, batch)
+        targets = batch["targets"]
+        mask = batch.get("loss_mask")
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+        if mask is not None:
+            ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            ce = nll.mean()
+        total = ce
+        metrics = {"ce": ce}
+        if self.cfg.family == "moe":
+            total = total + moe_lb_weight * aux["load_balance"] + moe_z_weight * aux["router_z"]
+            metrics.update(aux)
+        metrics["loss"] = total
+        return total, metrics
 
     # -------------------------------------------------------------- decode
     def prefill(self, params, batch: Dict[str, torch.Tensor], state: DecodeState

@@ -171,10 +171,13 @@ def _imports(path: Path):
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "train_step_profile.py"]
     assert len(files) > 20
     for mod in ("models/moe", "models/inputs", "core/simulator", "core/arbiter",
-                "core/capacity", "quickstart"):
+                "core/capacity", "quickstart", "pytree", "optim/adamw", "optim/tiered_adam",
+                "optim/grad_compress", "runtime/train", "runtime/elastic", "data/pipeline",
+                "checkpoint/ckpt", "train_tiered_lm"):
         assert ROOT / "src" / "repro_torch" / f"{mod}.py" in files
     bad = []
     for f in files:

@@ -17,7 +17,9 @@ order, park/restore table invariants, the frontend scheduler over two
 replicas through a replica failure (every request done, zero re-prefill,
 attention launches equal to the billed ones), and the mamba2 SMOKE's decode
 against its forward; a full-width MoE layer twice on the same inputs
-byte-equal. Every test skips where
+byte-equal; and the training path: SMOKE train steps that descend (AdamW
+and tiered Adam), the int8 MoE wire's backward equal to the CPU's, and a
+checkpoint of the card's tensors restored bit for bit. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -861,3 +863,83 @@ def test_moe_ffn_is_deterministic_on_the_gpu(gen):
         assert plan["capacity"] == (48 if shape[1] == 600 else 4)
         if shape[1] == 1:
             assert float(aux_a["dropped_frac"]) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_steps(device, opt):
+    """Two steps of the qwen1_5_4b SMOKE (bf16) on one batch: AdamW at
+    tests/test_archs.py's lr, or tiered Adam under ``default_policy``."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models.inputs import make_train_batch
+    from repro_torch.optim import adamw, tiered_adam
+    from repro_torch.runtime.train import make_train_step
+
+    model, params = _smoke_model("qwen1_5_4b", device)
+    batch = make_train_batch(model.cfg, batch=2, seq=32, device=device)
+    policy = tiered_adam.default_policy(params) if opt == "tiered" else None
+    state = tiered_adam.init(params, policy) if policy else adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=1e-3), ParallelConfig(), batch,
+                           tiered_policy=policy).fn
+    losses = []
+    for _ in range(2):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    return params, state, losses
+
+
+@pytest.mark.parametrize("opt", ["adamw", "tiered"])
+def test_smoke_train_step_descends_on_the_gpu(gen, opt):
+    """Two steps on one batch descend on the card, the parameters stay bf16
+    on the card, and no kernel of the serving path is launched."""
+    import numpy as np
+
+    before = build.launch_counts()
+    params, state, losses = _train_steps("cuda", opt)
+    assert all(np.isfinite(losses)) and losses[1] < losses[0], losses
+    assert params["embed"].dtype == torch.bfloat16 and params["embed"].is_cuda
+    assert build.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_wire_backward_on_the_gpu_equals_the_cpu(gen, dtype):
+    """The int8 wire's backward (the round trip of the cotangent) on the
+    card equals its CPU run on the same cotangent, bit for bit, at a
+    full-width qwen3_moe_235b dispatch shape [B, E, C, D]."""
+    from repro_torch.models import moe
+
+    shape = (2, 128, 40, 4096)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        y = moe.make_wire_transfer()(xd)
+        (gx,) = torch.autograd.grad(y, xd, g.to(dev))
+        outs.append((y.detach().cpu(), gx.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert float(outs[0][1].float().abs().max()) > 0
+
+
+def test_checkpoint_round_trip_of_gpu_tensors_is_bit_equal(gen, tmp_path):
+    """A trained SMOKE's params and tiered Adam state (bf16, f32, int8,
+    scales, an int32 0-d step) saved asynchronously from the card restore
+    onto the card bit for bit."""
+    from repro_torch import pytree
+    from repro_torch.checkpoint import CheckpointManager
+
+    params, state, _ = _train_steps("cuda", "tiered")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, {"params": params, "opt": state}, blocking=False)
+    example = pytree.tree_map(torch.zeros_like, {"params": params, "opt": state})
+    step, out = mgr.restore(example)
+    assert step == 2 and out["opt"].policy == state.policy
+    def raw(t):
+        return t.detach().cpu().reshape(-1).view(torch.uint8)
+
+    for a, b in zip(pytree.leaves(out), pytree.leaves({"params": params, "opt": state})):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(raw(a), raw(b))
