@@ -109,6 +109,30 @@ Phases (any failure exits non-zero before the result line):
      points; its sha256 and host ms printed) and the README's two-tenant
      ``simulate_multitenant`` timed with each ``end_window``. (a) and (b)
      count their launches from 0 and hold them to the cache's calls;
+  2k. the serving example (``repro_torch.serve_tiered_kv.run``, the
+     reference example's defaults: 4 requests of 48 tokens, 32 new tokens,
+     2 slots, alpha 0.3, 8-token pages, a 16-token recent window) at full
+     width on ``zamba2_1_2b`` and ``qwen1_5_4b`` (async + prefetch), and on
+     ``qwen1_5_4b`` with ``--serial-migration``: every request served, its
+     printed lines and wall time logged, the fused kernel launched once per
+     attention layer and step, quant/transcode/dequant as often as the cache
+     called them (each of the four at least once over the runs),
+     ``overlapped_steps`` > 0 on the async runs; each run stops once after
+     step 20 for kernels #1-#4 against their plain versions at the geometry
+     its engine gives them (the fused kernel on every attention layer of its
+     live state, and at recent-window fills from 0 to full;
+     quant/transcode/dequant at its page-out shape), uncounted and
+     taken out of its wall time; the dense serve steps at ``qwen1_5_4b``'s
+     width (``make_prefill_step`` on 2 x 512 tokens within 0.15 of
+     ``Model.prefill``'s last logits, 8 ``make_decode_step`` steps on a
+     1024-token cache within 0.15 of the teacher-forced forward);
+     after phase 5, ``make_sp_pool_attention`` on layer 0's warm and cold
+     pools of phase 3's mid-run state (one device: one per-pool launch and
+     the merge, byte-equal to the kernel, timed beside it; two model shards
+     in turn: within 2e-4 of the plain version with global slot positions);
+     and, after phase 7, on the host in this process, the dry-run of
+     ``qwen1_5_4b`` x its cells on ``meta``, with each cell's roofline terms
+     on this card;
   3. the full-width engine (40 layers, random bf16 weights from a seed)
      serves 3 requests on 2 slots through ``TieredEngine.submit``/``run``:
      first with serial migration (the blocking executor; at policy weight
@@ -158,7 +182,8 @@ run that drives each, and from the preemption, frontend, MoE, one-step and
 multi-tenant runs as ``preempt_launches``/``frontend_launches``/
 ``moe_launches``/``one_step_launches``/``multitenant_launches`` (the
 engine) and ``multitenant_cache_launches``, and from phase 2j as
-``train_launches``; kernels 1-5 also carry their times at the
+``train_launches``, and from phase 2k as ``example_launches`` (per run) and
+``sp_launches``; kernels 1-5 also carry their times at the
 ``qwen3_moe_235b`` shapes, ``at_qwen3_moe_235b``). The last line is the JSON result
 ``{"ok": true, "device": {...}}``.
 """
@@ -184,7 +209,7 @@ import torch  # noqa: E402
 
 from repro_torch import pytree  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import ParallelConfig, TierScapeRunConfig, get  # noqa: E402
+from repro_torch.configs import ParallelConfig, TierScapeRunConfig, cells_for, get  # noqa: E402
 from repro_torch.core import arbiter, capacity, simulator  # noqa: E402
 from repro_torch.core.manager import ManagerConfig, make_manager  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, HostLoader, synthetic_corpus  # noqa: E402
@@ -192,12 +217,15 @@ from repro_torch.frontend import ContinuousScheduler, TraceConfig, generate  # n
 from repro_torch.kernels import build, cxl_line, ops, ref  # noqa: E402
 from repro_torch.kernels import dequant_page, quant_page, transcode_page  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_abstract_mesh, make_mesh  # noqa: E402
 from repro_torch.media.faults import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.models import Model, attention, inputs, moe  # noqa: E402
 from repro_torch.models.transformer import _attn_layer_count  # noqa: E402
 from repro_torch.optim import tiered_adam  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
+from repro_torch import serve_tiered_kv  # noqa: E402
 from repro_torch.runtime.train import make_train_step  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import TieredEngine  # noqa: E402
@@ -281,6 +309,26 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 6
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 20, 200
 RESUME_LAYERS, RESUME_STEPS, RESUME_RTOL = 2, 4, 1e-3
 TRAIN_MOE_LAYERS = 1
+# Phase 2k: the serving example (repro_torch.serve_tiered_kv, the reference
+# example's defaults: 4 requests of 48 tokens, 32 new tokens, 2 slots, alpha
+# 0.3, analytical, async + prefetch; 8-token pages, a 16-token recent window)
+# at full width on its default arch and on qwen1_5_4b, once more serially;
+# the dense serve steps on qwen1_5_4b (2 x 512-token prefill, 8 decode steps
+# on a 1024-token dense cache, held to the teacher-forced forward at
+# tests/test_archs.py's decode-vs-forward bar); the sp pool attention on
+# layer SP_LAYER of phase 3's mid-run state; and the dry-run of DRYRUN_ARCH
+# on the host, after the card's timed phases. Each example run stops once,
+# after EXAMPLE_COMPARE_STEP steps (past its second 8-step window boundary),
+# for the kernels' checks at the geometry its engine gives them (uncounted).
+EXAMPLE_RUNS = (("zamba2_1_2b", ()), ("qwen1_5_4b", ()), ("qwen1_5_4b", ("--serial-migration",)))
+EXAMPLE_COMPARE_STEP = 20
+DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE, DENSE_MAX_LEN = 2, 512, 8, 1024
+SP_LAYER = 0
+DRYRUN_ARCH = "qwen1_5_4b"
+# The cxl codec takes hd 64 or 128; the zamba2 run gives the encode hd 64
+# pages only, so it is also timed at scripts/row_group_times.py's hd=128
+# cxl shape (the qwen1_5_4b page geometry).
+CXL_ENCODE_HD128 = (32, 16, 20, 128)
 REPLACES = {
     "fused_tiered_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:399"),
@@ -377,41 +425,42 @@ def check_transcode(pay, sc, src, dst) -> float:
     return _dequant_err(pk, sk, pp, sp, dst)
 
 
-def attention_operands(g: torch.Generator, b: int, h: int, kv: int, hd: int, mp: int):
+def attention_operands(g: torch.Generator, b: int, h: int, kv: int, hd: int, mp: int,
+                       t: int = T, r: int = R, n_valid=((40, 25, 12), (7, 60, 30)),
+                       rlen=(R, 0)):
     """A mixed unified table at the engine's shapes: per sequence, warm
     (int8), cold (int4) and host columns of ``mp`` rows each, with valid
-    prefixes of different lengths, invalid tails, and one sequence whose
-    recent window is empty."""
+    prefixes ``n_valid`` (invalid tails past them) and ``rlen`` tokens in
+    its ``r``-token recent window (by default one full, one empty)."""
     dev = DEV
     p8, p4, hs = 4 * mp, 4 * mp, 2 * mp
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    k8, s8k = ref.quant_kv_page(rn(p8, T, kv, hd), 8)
-    v8, s8v = ref.quant_kv_page(rn(p8, T, kv, hd) * 0.5, 8)
-    k4, s4k = ref.quant_kv_page(rn(p4, T, kv, hd), 4)
-    v4, s4v = ref.quant_kv_page(rn(p4, T, kv, hd) * 0.5, 4)
+    k8, s8k = ref.quant_kv_page(rn(p8, t, kv, hd), 8)
+    v8, s8v = ref.quant_kv_page(rn(p8, t, kv, hd) * 0.5, 8)
+    k4, s4k = ref.quant_kv_page(rn(p4, t, kv, hd), 4)
+    v4, s4v = ref.quant_kv_page(rn(p4, t, kv, hd) * 0.5, 4)
     summary = rn(hs, kv, hd)
     q = rn(b, h, hd).to(torch.bfloat16)
-    rk = rn(b, R, kv, hd).to(torch.bfloat16)
-    rv = rn(b, R, kv, hd).to(torch.bfloat16)
-    n_valid = [(40, 25, 12), (7, 60, 30)][:b]
+    rk = rn(b, r, kv, hd).to(torch.bfloat16)
+    rv = rn(b, r, kv, hd).to(torch.bfloat16)
     slots, tiers = [], []
-    for nw, nc, nh in n_valid:
+    for nw, nc, nh in n_valid[:b]:
         row_s, row_t = [], []
         cols = ((nw, pa.TIER_INT8, p8), (nc, pa.TIER_INT4, p4), (nh, pa.TIER_HOST, hs))
         for n, code, rows in cols:
             s = torch.randint(0, rows, (mp,), generator=g, device=dev, dtype=torch.int32)
-            t = torch.full((mp,), pa.TIER_INVALID, dtype=torch.int32, device=dev)
-            t[:n] = code
+            tier = torch.full((mp,), pa.TIER_INVALID, dtype=torch.int32, device=dev)
+            tier[:n] = code
             row_s.append(s)
-            row_t.append(t)
+            row_t.append(tier)
         slots.append(torch.cat(row_s))
         tiers.append(torch.cat(row_t))
-    rlen = torch.tensor([R, 0][:b], dtype=torch.int32, device=dev)
+    rlen = torch.tensor(rlen[:b], dtype=torch.int32, device=dev)
     return (q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, rk, rv,
-            torch.stack(slots).contiguous(), torch.stack(tiers).contiguous(), rlen, T)
+            torch.stack(slots).contiguous(), torch.stack(tiers).contiguous(), rlen, t)
 
 
 def check_attention(operands) -> float:
@@ -2381,6 +2430,346 @@ def phase_training() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 2k
+def check_example_kernels(eng: TieredEngine, spies) -> dict:
+    """Phase 2 at the geometry the serving example's engine gives the
+    kernels: ``eng.pt``-token pages, an ``eng.recent_window``-token window,
+    ``eng.max_seq_len // eng.pt`` pages a sequence, ``eng.bs`` slots, the
+    arch's heads. The fused kernel cuts the window into ``pt // 2``-token
+    chunks, so its fills run 0, 1, one chunk, one chunk + 1, one short of
+    full and full. The page kernels run at the run's largest page-out so far
+    (bf16, as the cache hands it over, and f32): quant at int8 and int4, and
+    its payloads through transcode both ways and dequant to f32 and bf16."""
+    cfg, t, r = eng.cfg, eng.pt, eng.recent_window
+    mp, kv, hd, h = eng.max_seq_len // t, cfg.n_kv_heads, cfg.head_dim_(), cfg.n_heads
+    g = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    largest = spies["quant_pages"].largest
+    if largest is None:
+        fail(f"example {cfg.name}: no page-out by step {eng.stats.steps}")
+    shape = largest[1]
+    if shape[1:] != (t, kv, hd):
+        fail(f"example {cfg.name}: page-out shape {shape}, expected [., {t}, {kv}, {hd}]")
+    pages = torch.randn(shape, generator=g, device=DEV)
+    errs = {"quant_pages": 0.0, "transcode_pages": 0.0, "dequant_pages": 0.0}
+    for x in (pages.to(torch.bfloat16), pages):
+        for bits in (8, 4):
+            errs["quant_pages"] = max(errs["quant_pages"], check_quant(x, bits))
+            pay, sc = ref.quant_kv_page(x, bits)
+            errs["transcode_pages"] = max(errs["transcode_pages"],
+                                          check_transcode(pay, sc, bits, 12 - bits))
+            for out_dtype in (torch.float32, torch.bfloat16):
+                errs["dequant_pages"] = max(errs["dequant_pages"],
+                                            check_dequant(pay, sc, bits, out_dtype))
+    n_valid = ((mp, mp * 2 // 3, mp // 4), (2, mp, mp // 2))
+    fills = ((0, r), (1, t // 2), (t // 2 + 1, r - 1))
+    errs["fused_tiered_attention"] = max(
+        check_attention(attention_operands(g, eng.bs, h, kv, hd, mp, t, r, n_valid, rlen))
+        for rlen in fills)
+    log(f"phase 2k ok (example {cfg.name} at page [., {t}, {kv}, {hd}], window {r}, "
+        f"{mp} pages a sequence, {eng.bs} slots, page-out {list(shape)}): kernels match their "
+        f"plain versions, max abs err {errs}")
+    return errs
+
+
+def check_live_attention(eng: TieredEngine) -> float:
+    """The fused kernel against its plain version on every attention layer
+    of the engine's live state (its class buffers, unified table, host
+    summaries and recent window, at its page and window sizes), one random
+    q a layer, so no layer's input depends on another layer's output."""
+    st, cfg = eng.cache.state, eng.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    rlen = (st.recent_len + 1).to(torch.int32).contiguous()  # the step's new token
+    err = 0.0
+    for li in range(eng.la):
+        layer, pools = layer_pools(st, li)
+        host = {"summary": layer["host_summary"], "table": layer["host_table"],
+                "n": layer["host_n"], "page_tokens": eng.pt}
+        q = torch.randn((eng.bs, cfg.n_heads, cfg.head_dim_()), generator=g,
+                        device=DEV).to(torch.bfloat16)
+        (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, slot, tier, t, _) = \
+            ops._unified_operands(q, pools, layer["recent_k"], host)
+        err = max(err, check_attention((q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary,
+                                        layer["recent_k"], layer["recent_v"], slot, tier,
+                                        rlen, t)))
+    log(f"phase 2k ok (example {cfg.name}, step {eng.stats.steps}): the fused kernel matches "
+        f"its plain version on all {eng.la} attention layers of the live state, max abs err "
+        f"{err:.3g}")
+    return err
+
+
+def phase_example(cfg, params, extra=()) -> dict:
+    """``serve_tiered_kv.run`` at ``cfg``'s width with the example's
+    defaults (plus ``extra`` flags): every request served to its full
+    length, the fused kernel launched once per attention layer and step (as
+    billed), quant/transcode/dequant launched as often as the cache called
+    them, page-outs handed over in bf16, and on the async path
+    ``overlapped_steps`` above 0. Counts are reset before and read after.
+    After EXAMPLE_COMPARE_STEP steps the run stops once for
+    ``check_live_attention`` and ``check_example_kernels``; their launches,
+    calls and seconds are taken out of the run's."""
+    args = serve_tiered_kv.parser().parse_args(["--arch", cfg.name, *extra])
+    what = f"example {cfg.name}" + "".join(f" {e}" for e in extra)
+    lines = []
+    free_device()
+    resident = torch.cuda.memory_allocated()
+    spies = install_spies()
+    reset_counts(spies)
+    checks = {}
+    engine_step = TieredEngine.step
+
+    def step(eng):
+        engine_step(eng)
+        if eng.stats.steps == EXAMPLE_COMPARE_STEP:
+            t1 = time.perf_counter()
+            launches, calls = build.launch_counts(), {n: spies[n].calls for n in SPIED}
+            live = check_live_attention(eng)
+            checks["kernels"] = check_example_kernels(eng, spies)
+            checks["kernels"]["fused_tiered_attention"] = max(
+                live, checks["kernels"]["fused_tiered_attention"])
+            checks["live_attention_err"] = live
+            torch.cuda.synchronize()
+            build.LAUNCHES.update(launches)
+            for n, c in calls.items():
+                spies[n].calls = c
+            checks["seconds"] = time.perf_counter() - t1
+
+    torch.cuda.reset_peak_memory_stats()
+    TieredEngine.step = step
+    t0 = time.perf_counter()
+    try:
+        stats, reqs, eng, run_wall = serve_tiered_kv.run(cfg, args, DEV, params=params,
+                                                         log=lines.append)
+        torch.cuda.synchronize()
+    finally:
+        TieredEngine.step = engine_step
+        remove_spies(spies)
+    if "seconds" not in checks:
+        fail(f"{what}: the run ended before step {EXAMPLE_COMPARE_STEP}; nothing was checked")
+    wall = time.perf_counter() - t0 - checks["seconds"]
+    run_wall -= checks["seconds"]
+    counts = read_counts(spies)
+    for line in lines:
+        log(f"  [{what}] {line}")
+    log(f"  [{what}] the printed wall holds {checks['seconds']:.2f} s of the step-"
+        f"{EXAMPLE_COMPARE_STEP} checks, taken out of wall_s and run_wall_s")
+    if stats.completed != args.requests or not all(
+            r.done and len(r.out_tokens) == args.new_tokens for r in reqs):
+        fail(f"{what}: not every request completed: {stats.completed}/{args.requests}")
+    check_counts(counts, what)
+    check_bf16_page_out(spies, what)
+    if counts["fused_tiered_attention"] != stats.attn_launches or \
+            stats.attn_launches != eng.la * stats.steps:
+        fail(f"{what}: fused_tiered_attention launched {counts['fused_tiered_attention']} times, "
+             f"billed {stats.attn_launches}, expected {eng.la} x {stats.steps} steps")
+    if (stats.overlapped_steps > 0) == bool(args.serial_migration):
+        fail(f"{what}: overlapped steps {stats.overlapped_steps} on the "
+             f"{'serial' if args.serial_migration else 'async'} path")
+    out = {"arch": cfg.name, "flags": list(extra), "wall_s": wall, "run_wall_s": run_wall,
+           "engine_steps": stats.steps, "windows": stats.windows,
+           "migrations": stats.migrations, "overlapped_steps": stats.overlapped_steps,
+           "prefetch_staged": stats.prefetch_staged, "prefetch_hits": stats.prefetch_hits,
+           "decode_ms_per_step": stats.decode_s / max(stats.steps, 1) * 1e3,
+           "prefill_ms_per_request": stats.prefill_s / args.requests * 1e3,
+           "tco_savings_pct": stats.tco_savings_pct,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "resident_before_bytes": resident, "launches": counts,
+           "check_s": checks["seconds"], "live_attention_err": checks["live_attention_err"],
+           "kernel_errs": checks["kernels"],
+           "first_tokens": [r.out_tokens[:12] for r in reqs[:2]]}
+    shown = {k: v for k, v in out.items() if k != "first_tokens"}
+    log(f"phase 2k ok ({what}): {json.dumps(shown)}")
+    return out
+
+
+def phase_dense_steps(cfg, model, params) -> dict:
+    """The dense serve steps at full width: ``make_prefill_step`` on
+    DENSE_BATCH x DENSE_PROMPT tokens (``Model.forward``'s last logits)
+    matches ``Model.prefill``'s last logits (its own layer loop, filling a
+    DENSE_MAX_LEN dense cache) within DECODE_VS_FORWARD, and DENSE_DECODE
+    steps of ``make_decode_step`` on the next tokens match the forward over
+    prompt + those tokens within it. No kernel of the port runs (counted)."""
+    mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+    par = ParallelConfig()
+    g = np.random.default_rng(SEED + 11)
+    tokens = torch.as_tensor(g.integers(1, cfg.vocab_size,
+                                        (DENSE_BATCH, DENSE_PROMPT + DENSE_DECODE)), device=DEV)
+    prompt = {"tokens": tokens[:, :DENSE_PROMPT]}
+    build.reset_launch_counts()
+    with torch.no_grad():
+        fn, _ = serve.make_prefill_step(model, mesh, par)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = fn(params, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step = serve.make_decode_step(model, mesh, par, DENSE_BATCH, DENSE_MAX_LEN)
+        state = model.init_cache(DENSE_BATCH, DENSE_MAX_LEN)
+        filled, state = model.prefill(params, prompt, state)
+        if not torch.isfinite(last).all():
+            fail("prefill step: logits are not finite")
+        prefill_err = float((last.float() - filled[:, -1].float()).abs().max())
+        if prefill_err >= DECODE_VS_FORWARD:
+            fail(f"prefill step vs Model.prefill: max diff {prefill_err} "
+                 f"(bar {DECODE_VS_FORWARD})")
+        outs, times = [], []
+        for i in range(DENSE_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = step.fn(params, tokens[:, DENSE_PROMPT + i:DENSE_PROMPT + i + 1], state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(lg)
+        forward = model.forward(params, {"tokens": tokens})[0][:, DENSE_PROMPT:]
+    dec = torch.cat(outs, 1).float()
+    if not torch.isfinite(dec).all():
+        fail("decode step: logits are not finite")
+    err = float((dec - forward.float()).abs().max())
+    launched = sum(build.launch_counts().values())
+    if err >= DECODE_VS_FORWARD or launched:
+        fail(f"decode step vs teacher-forced forward: max diff {err} (bar {DECODE_VS_FORWARD}), "
+             f"{launched} kernel launches")
+    out = {"prefill_shape": [DENSE_BATCH, DENSE_PROMPT], "prefill_step_ms": prefill_ms,
+           "decode_steps": DENSE_DECODE, "max_len": DENSE_MAX_LEN,
+           "prefill_vs_model_prefill_max_diff": prefill_err,
+           "decode_ms_per_step": float(np.median(times)), "decode_vs_forward_max_diff": err,
+           "max_abs_logit": float(forward.float().abs().max()),
+           "greedy_equal": bool((dec.argmax(-1) == forward.float().argmax(-1)).all())}
+    log(f"phase 2k ok (dense serve steps): {json.dumps(out)}")
+    return out
+
+
+def _striped(pool: dict, shards: int) -> dict:
+    """``pool`` laid out for ``shards`` model shards of its table's columns:
+    the pages of shard j's columns copied to shard j's rows of a new pool
+    (global id l * shards + j at physical row j * rows + l), the table
+    rewritten to those ids. The valid prefix is unchanged."""
+    table = pool["page_table"]
+    cols = table.shape[1] // shards
+    uniq = [torch.unique(table[:, j * cols:(j + 1) * cols]) for j in range(shards)]
+    rows = max(u.numel() for u in uniq)
+    src = torch.cat([torch.cat([u, u[:1].expand(rows - u.numel())]) for u in uniq])
+    new = torch.empty_like(table)
+    for j, u in enumerate(uniq):
+        part = table[:, j * cols:(j + 1) * cols]
+        local = torch.searchsorted(u, part.contiguous()).to(table.dtype)
+        new[:, j * cols:(j + 1) * cols] = local * shards + j
+    out = {k: pool[k][src.long()] for k in ("k_pages", "k_scales", "v_pages", "v_scales")}
+    return dict(out, page_table=new.contiguous(), n_pages=pool["n_pages"])
+
+
+def phase_sp(state, h: int) -> dict:
+    """``make_sp_pool_attention`` on layer SP_LAYER's warm and cold pools of
+    a mid-run state: on a one-device mesh one per-pool launch + the merge,
+    byte-equal to ``paged_quant_attention`` and timed beside it; on an
+    abstract (1, 2) mesh (the pool re-laid for two model shards, run in
+    turn) within ATTN_TOL of the plain version of the unsharded pool with
+    each shard's global slot positions (masses) and whole (the normalized
+    output and log-sum-exp)."""
+    _, pools = layer_pools(state, SP_LAYER)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    b = pools["warm"]["page_table"].shape[0]
+    hd = pools["warm"]["k_pages"].shape[-1]
+    q = torch.randn((b, h, hd), generator=g, device=DEV).to(torch.bfloat16)
+    one = serve.make_sp_pool_attention(make_mesh((1, 1), ("data", "model"), device=DEV),
+                                       ("data",))
+    two = serve.make_sp_pool_attention(make_abstract_mesh((1, 2), ("data", "model")),
+                                       ("data",))
+    out = {}
+    build.reset_launch_counts()
+    for name, pool in pools.items():
+        bits = pool["bits"]
+        got = one(q, pool, bits)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()["paged_quant_attention"]
+        want = pa.paged_quant_attention(q, pool["k_pages"], pool["k_scales"], pool["v_pages"],
+                                        pool["v_scales"], pool["page_table"], pool["n_pages"],
+                                        bits)
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            fail(f"sp attention ({name}, one device): not byte-equal to the per-pool kernel")
+        sp2 = _striped(pool, 2)
+        o2, m2, l2, mass2, base2 = two(q, sp2, bits)
+        cols = pool["page_table"].shape[1] // 2
+        errs = []
+        for j in range(2):
+            sl = slice(j * cols, (j + 1) * cols)
+            pos = torch.arange(j * cols, (j + 1) * cols, dtype=torch.int32, device=DEV)
+            w = ref.paged_quant_attention(q, pool["k_pages"], pool["k_scales"],
+                                          pool["v_pages"], pool["v_scales"],
+                                          pool["page_table"][:, sl].contiguous(),
+                                          pool["n_pages"], bits, slot_pos=pos[None].expand(b, cols))
+            errs += [float((mass2[:, sl] - w[3]).abs().max()), float((base2[:, sl] - w[4]).abs()
+                                                                     .max())]
+        w = ref.paged_quant_attention(q, pool["k_pages"], pool["k_scales"], pool["v_pages"],
+                                      pool["v_scales"], pool["page_table"], pool["n_pages"], bits)
+        live = w[2] > 0
+        d_out = o2 / l2.clamp_min(1e-30)[..., None] - w[0] / w[2].clamp_min(1e-30)[..., None]
+        d_lse = (m2 + l2.clamp_min(1e-30).log()) - (w[1] + w[2].clamp_min(1e-30).log())
+        errs += [float(torch.where(live[..., None], d_out, 0.0).abs().max()),
+                 float(torch.where(live, d_lse, 0.0).abs().max())]
+        if max(errs) > ATTN_TOL:
+            fail(f"sp attention ({name}, two shards in turn) vs plain with slot positions: "
+                 f"max diff {max(errs)} > {ATTN_TOL}")
+        args = (q, pool["k_pages"], pool["k_scales"], pool["v_pages"], pool["v_scales"],
+                pool["page_table"], pool["n_pages"], bits)
+        out[name] = {"launches": launches, "two_shard_max_diff": max(errs),
+                     "valid_pages": int(pool["n_pages"].sum()),
+                     "ms": time_ms(lambda: one(q, pool, bits)),
+                     "kernel_ms": time_ms(lambda: pa.paged_quant_attention_launch(*args)),
+                     "two_shard_ms": time_ms(lambda: two(q, sp2, bits))}
+        build.reset_launch_counts()
+    launches = sum(o["launches"] for o in out.values())
+    if launches != len(pools):
+        fail(f"sp attention launched the per-pool kernel {launches} times for {len(pools)} pools")
+    log(f"phase 2k ok (sp pool attention, layer {SP_LAYER}): {json.dumps(out)}")
+    return {"pools": out, "launches": launches}
+
+
+def cxl_encode_hd128(errs) -> dict:
+    """``cxl_encode_pages`` at CXL_ENCODE_HD128 in bf16 and f32: byte-equal
+    to its plain version, timed beside it, with its bound (each input read
+    once; payload, scales and line widths written once; 7 operations an
+    element), as ``scripts/row_group_times.py`` times it."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        pages = torch.randn(CXL_ENCODE_HD128, generator=g, device=DEV).to(dtype)
+        errs["cxl_encode_pages"] = max(errs["cxl_encode_pages"], check_cxl_encode(pages))
+        n = pages.numel()
+        bound, by = bound_ms(n * pages.element_size() + n + n // pages.shape[-1] * 4
+                             + n // ref.CXL_LINE_ELEMS * 4, 7 * n)
+        out["bf16" if dtype == torch.bfloat16 else "f32"] = {
+            "ms": time_ms(lambda: cxl_line.cxl_encode_pages(pages)),
+            "plain_ms": time_ms(lambda: ref.cxl_encode_kv_page(pages)),
+            "bound_ms": bound, "bound_by": by, "shape": list(CXL_ENCODE_HD128)}
+    log(f"phase 2k ok (cxl_encode_pages at hd=128): {json.dumps(out)}")
+    return out
+
+
+def phase_dryrun() -> dict:
+    """The dry-run of DRYRUN_ARCH x its cells, in this process on ``meta``
+    after the card's timed phases (no kernel runs): each cell's roofline
+    terms on this card's ``analysis.device_spec()``."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    cells = {}
+    try:
+        for shape in cells_for(DRYRUN_ARCH):
+            d = dryrun.run_cell(DRYRUN_ARCH, shape, "h100x1", out_dir)
+            cells[shape] = {k: d[k] for k in (
+                "kind", "flops_pd", "bytes_pd", "compute_s", "memory_s", "collective_s",
+                "bottleneck", "args_bytes_pd", "fits_hbm", "model_flops", "useful_ratio",
+                "step_time_s", "roofline_fraction", "device", "build_s", "count_s", "notes")}
+            log(f"  dry-run {DRYRUN_ARCH} x {shape}: compute {d['compute_s']:.4e} s, memory "
+                f"{d['memory_s']:.4e} s, collective {d['collective_s']} s -> {d['bottleneck']}; "
+                f"args {d['args_bytes_pd']:.4e} B (fits {d['fits_hbm']} in {d['device']})")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out = {"cells": cells,
+           "build_and_count_s": sum(c["build_s"] + c["count_s"] for c in cells.values())}
+    log(f"phase 2k ok (dry-run {DRYRUN_ARCH} on the host: {out['build_and_count_s']:.1f} s of "
+        f"building and counting)")
+    return out
+
+
 def reckon_memory(cfg, params, eng) -> dict:
     """Bytes of this run's weights and tiered KV state, from their sizes, and
     what full depth would need: layer weights scale with depth, the class
@@ -2424,7 +2813,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     walls = {}
-
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2469,8 +2857,33 @@ def main() -> int:
     walls["2d-2f"] = new_phases_s
     log(f"phases 2d-2f took {new_phases_s:.1f} s")
     multitenant = timed("2i", phase_multitenant, cfg, model, params, fstats)
-    del model, params, fstats
+    del fstats
     free_device()
+
+    # Phase 2k (a, b): the serving example at full width (the qwen1_5_4b
+    # weights stay; zamba2_1_2b's are made for its run), the dense steps.
+    t0 = time.perf_counter()
+    examples = {}
+    for arch, extra in EXAMPLE_RUNS:
+        if arch == cfg.name:
+            examples[arch + "".join(extra)] = phase_example(cfg, params, extra)
+        else:
+            _, xparams = init_params(get(arch))
+            examples[arch + "".join(extra)] = phase_example(get(arch), xparams, extra)
+            del xparams
+            free_device()
+    for e in examples.values():  # the example-geometry checks join phase 2's errors
+        into = zerrs if e["arch"] == zcfg.name else errs
+        for name, err in e["kernel_errs"].items():
+            into[name] = max(into[name], err)
+    for name in ("fused_tiered_attention", "quant_pages", "transcode_pages", "dequant_pages"):
+        if not sum(e["launches"][name] for e in examples.values()):
+            fail(f"serving example: {name} was launched no time in {list(examples)}")
+    dense_steps = phase_dense_steps(cfg, model, params)
+    del model, params
+    free_device()
+    walls["2k"] = time.perf_counter() - t0
+    log(f"phase 2k (serving example, dense steps) took {walls['2k']:.1f} s")
     t0 = time.perf_counter()
     q3model, q3params = init_params(q3cfg)
     (q3eng, q3counts, q3pp_counts, q3metrics, q3spies, q3state, q3compares,
@@ -2501,6 +2914,10 @@ def main() -> int:
         m["peak_memory_note"] = "above the qwen3_32b engine left resident"
     modes = phase_modes(cfg)
     kernels = phase_times(eng, counts, pp_counts, spies, state, errs)
+    t1 = time.perf_counter()
+    sp = phase_sp(state, cfg.n_heads)  # phase 2k (c), on phase 3's mid-run state
+    cxl128 = cxl_encode_hd128(errs)
+    walls["2k_sp"] = time.perf_counter() - t1
     free_device()
     walls["3-5"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2523,6 +2940,8 @@ def main() -> int:
     zprof = phase_profile(zeng, zstate)
     q3prof = phase_profile(q3eng, q3state)
     walls["7"] = time.perf_counter() - t0
+    # Phase 2k (d): the dry-run on the host, after every timed phase.
+    dryrun_cells = timed("2k_dryrun", phase_dryrun)
     # Kernels 1-5 carry their hd=64 (zamba2), qwen3_32b and qwen3_moe_235b
     # numbers beside the hd=128 (qwen1_5_4b) ones; 6-7 run only on the
     # zamba2 path.
@@ -2544,6 +2963,10 @@ def main() -> int:
         k["moe_launches"] = moe_counts[k["name"]]
         k["one_step_launches"] = {a: o["launches"][k["name"]] for a, o in one_step.items()}
         k["train_launches"] = training["launches"][k["name"]]
+        k["example_launches"] = {r: e["launches"][k["name"]] for r, e in examples.items()}
+        k["sp_launches"] = sp["launches"] if k["name"] == "paged_quant_attention" else 0
+        if k["name"] == "cxl_encode_pages":
+            k["at_hd128"] = cxl128
     log(json.dumps({"card": smi, "engine": {"async": async_metrics, "serial": serial_metrics,
                                             "serial_same_alpha": same_alpha,
                                             "zamba2_cxl_hw": zmetrics,
@@ -2559,6 +2982,8 @@ def main() -> int:
                     "frontend": frontend, "phases_2d_2f_s": new_phases_s,
                     "multitenant": multitenant, "training": training,
                     "qwen3_moe_235b": moe_metrics, "hubert_xlarge": hubert,
+                    "serving_example": examples, "dense_serve_steps": dense_steps,
+                    "sp_pool_attention": sp, "dryrun": dryrun_cells,
                     "phase_wall_s": walls,
                     "modes": modes, "decode_step_profile": prof,
                     "zamba2_decode_step_profile": zprof,

@@ -1,9 +1,15 @@
-"""Host-side slot management for the compressed device pools.
+"""Compressed-pool data plane, after ``repro.core.pools``.
 
-Mirrors ``SlotAllocator``, ``exchange_slots``, the codec-class-major
-``PoolRange``/``ClassPartition`` and the arbiter's ``TenantLedger`` of
-``repro.core.pools``. Allocation policy runs on the host (it is part of the
-daemon tax) and only integer class-row indices reach the device page tables.
+  * **Device side** (``TierPool``): a fixed-capacity uint8 payload + f32
+    scale tensor pair for one compressed tier, one block per row, written
+    and read through the tier's codec (``core.codecs``). No serving path
+    uses it (the KV cache keeps its own class buffers); it is the
+    reference's generic block store.
+  * **Host side**: ``SlotAllocator``, ``exchange_slots``, the
+    codec-class-major ``PoolRange``/``ClassPartition``, the arbiter's
+    ``TenantLedger`` and ``BlockTable``. Allocation policy runs on the host
+    (it is part of the daemon tax) and only integer class-row indices reach
+    the device page tables.
 """
 
 from __future__ import annotations
@@ -12,6 +18,56 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.codecs import Encoded
+from repro_torch.core.tiers import TierSpec
+
+
+@dataclasses.dataclass
+class TierPool:
+    """Device-side storage for one compressed tier."""
+
+    payload: torch.Tensor  # uint8 [capacity, payload_bytes]
+    scales: torch.Tensor  # f32 [capacity, n_groups] (n_groups >= 1)
+
+    @property
+    def capacity(self) -> int:
+        return self.payload.shape[0]
+
+
+def make_tier_pool(spec: TierSpec, capacity_blocks: int, block_elems: int,
+                   device="cpu") -> TierPool:
+    codec = spec.codec
+    pbytes = codec.payload_bytes(block_elems)
+    ngroups = max(codec.scale_bytes(block_elems) // 4, 1)
+    return TierPool(
+        payload=torch.zeros((capacity_blocks, pbytes), dtype=torch.uint8, device=device),
+        scales=torch.ones((capacity_blocks, ngroups), dtype=torch.float32, device=device),
+    )
+
+
+def pool_write(pool: TierPool, slot, payload_row, scales_row) -> TierPool:
+    """A new pool with row ``slot`` replaced (the input pool is unchanged,
+    as the reference's functional update)."""
+    payload, scales = pool.payload.clone(), pool.scales.clone()
+    payload[slot] = payload_row
+    scales[slot] = scales_row
+    return TierPool(payload=payload, scales=scales)
+
+
+def pool_compress_block(spec: TierSpec, pool: TierPool, slot, block) -> TierPool:
+    """Encode ``block`` with the tier's codec and store it at ``slot``."""
+    enc = spec.codec.encode(block)
+    scales = enc.scales
+    if scales.shape[0] == 0:
+        scales = torch.ones((1,), dtype=torch.float32, device=scales.device)
+    return pool_write(pool, slot, enc.payload, scales)
+
+
+def pool_decompress_block(spec: TierSpec, pool: TierPool, slot, shape, dtype=torch.bfloat16):
+    enc = Encoded(payload=pool.payload[slot], scales=pool.scales[slot], codec=spec.codec_name)
+    return spec.codec.decode(enc, shape, dtype)
 
 
 class SlotAllocator:
@@ -200,3 +256,20 @@ class TenantLedger:
     def oversubscribed(self) -> np.ndarray:
         """Per-tier bool: committed usage + reservations exceed capacity."""
         return (self.usage.sum(axis=0) + self.reserved.sum(axis=0)) > self.capacity
+
+
+@dataclasses.dataclass
+class BlockTable:
+    """Host-side block -> (placement, slot) mapping for a managed store."""
+
+    n_blocks: int
+
+    def __post_init__(self):
+        self.placement = np.zeros(self.n_blocks, dtype=np.int64)  # 0 = uncompressed
+        self.slot = np.full(self.n_blocks, -1, dtype=np.int64)
+
+    def move(self, block_id: int, new_placement: int, new_slot: int) -> Tuple[int, int]:
+        old = (int(self.placement[block_id]), int(self.slot[block_id]))
+        self.placement[block_id] = new_placement
+        self.slot[block_id] = new_slot
+        return old

@@ -220,6 +220,23 @@ def merge_partials(parts: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]])
     return num / den[..., None]
 
 
+def tiered_decode_attention(q, pools: dict, recent_k, recent_v, recent_len, cfg=None
+                            ) -> torch.Tensor:
+    """Full oracle: attention over N quantized tier pools + the dense recent
+    window, merged exactly. ``pools`` maps tier name -> dict with keys
+    (k_pages, k_scales, v_pages, v_scales, page_table, n_pages, bits).
+    Returns out [B, H, hd] (f32)."""
+    parts = [dense_recent_attention(q, recent_k, recent_v, recent_len)]
+    for name in sorted(pools):
+        p = pools[name]
+        out_u, m, lsum, _, _ = paged_quant_attention(
+            q, p["k_pages"], p["k_scales"], p["v_pages"], p["v_scales"],
+            p["page_table"], p["n_pages"], p["bits"],
+        )
+        parts.append((out_u, m, lsum))
+    return merge_partials(parts)
+
+
 def merge_ranks(parts: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
     """The split attention kernels' merge of partials [(acc_unnorm, m, l),
     ...] (one per cluster rank, in rank order): m_tot is the largest m among
@@ -294,3 +311,16 @@ def fused_tiered_attention(q, pools: dict, recent_k, recent_v, recent_len, host:
             q, host["summary"], host["table"], host["n"], host["page_tokens"]
         )
     return out, m_tot, l_tot, masses
+
+
+def tiered_page_masses(q, pools: dict) -> dict:
+    """Per-tier (page_mass, page_base) telemetry; normalize with
+    ``ops.page_hotness`` after merging."""
+    out = {}
+    for name, p in pools.items():
+        _, _, _, mass, base = paged_quant_attention(
+            q, p["k_pages"], p["k_scales"], p["v_pages"], p["v_scales"],
+            p["page_table"], p["n_pages"], p["bits"],
+        )
+        out[name] = (mass, base)
+    return out

@@ -75,6 +75,9 @@ class FaultPlan:
         for e in self.events:
             self._by_dev.setdefault(e.device, []).append(e)
 
+    def devices(self) -> Tuple[str, ...]:
+        return tuple(sorted(self._by_dev))
+
     def _active(self, device: str, window: int) -> List[FaultEvent]:
         return [e for e in self._by_dev.get(device, ()) if e.active(window)]
 
@@ -186,6 +189,10 @@ class FaultyMediaDevice:
     @property
     def queue_depth(self) -> int:
         return self.base.queue_depth
+
+    @property
+    def window(self) -> int:
+        return self._window
 
     def note_window(self, window: int) -> None:
         self._window = int(window)

@@ -73,6 +73,11 @@ class PinnedRing:
     def held_slots(self) -> int:
         return len(self._held)
 
+    def can_acquire(self, n: int) -> bool:
+        if self.backpressured:
+            return False
+        return n <= len(self._free)
+
     @property
     def spec_held_slots(self) -> int:
         return len(self._spec_held)

@@ -96,7 +96,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(head_dim, theta, x.device)  # [half]
     # Which section (and so which position axis) each rotary dim uses.
     sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.as_tensor(sections, device=x.device))  # [half]
+                                     torch.as_tensor(sections, device=x.device),
+                                     output_size=half)  # [half]
     pos_per_dim = positions3.to(torch.float32)[sec_id]  # [half, B, S]
     angles = pos_per_dim.permute(1, 2, 0) * freqs  # [B, S, half]
     cos = torch.cos(angles)[..., None, :]

@@ -80,9 +80,10 @@ def ssm_state_shapes(cfg: ModelConfig, batch: int):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       device="cpu") -> DecodeState:
-    hd = cfg.head_dim_()
+    hd = cfg.head_dim_() if cfg.has_attention else 1
+    kv = cfg.n_kv_heads if cfg.has_attention else 1
     la = _attn_layer_count(cfg)
-    shape = (la, batch, max_len if la else 0, cfg.n_kv_heads, hd)
+    shape = (la, batch, max_len if la else 0, kv, hd)
     if cfg.ssm is not None:
         conv_shape, ssm_shape = ssm_state_shapes(cfg, batch)
     else:

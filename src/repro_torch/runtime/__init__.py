@@ -1,1 +1,6 @@
-"""The tiered decode step of the port."""
+"""Step builders of the port: sharding specs, train, serve and the elastic
+runner."""
+
+from repro_torch.runtime import elastic, serve, sharding, train
+
+__all__ = ["sharding", "train", "serve", "elastic"]

@@ -14,23 +14,155 @@ them carry a (conv, ssm) side state through the step. A MoE layer runs its
 FFN with each slot as one dispatch group of one token (capacity 4, so
 nothing drops at decode). Under M-RoPE every slot rotates at its own
 position on all three axes (text).
+
+``make_decode_step`` (one token against a dense KV cache) and
+``make_prefill_step`` (the last position's logits of a full forward) are the
+dense serve steps the ``decode_32k`` and ``prefill_32k`` cells run, with the
+specs of their operands. ``make_sp_pool_attention`` is the
+sequence-parallel pool attention: pool pages striped over the mesh, each
+shard's flash partial from the per-pool kernel, the partials merged by an
+exact logsumexp over ``model``. The port runs the shards in turn on one
+device; on a one-device mesh that is one kernel launch and the merge. The
+tiered step does not route through it: the reference takes that route only
+with ``shard_kv_seq`` and TP > 1, which one device never has.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TierScapeRunConfig
-from repro_torch.device import resolve_device
+from repro_torch.configs.base import ModelConfig, ParallelConfig, TierScapeRunConfig
+from repro_torch.device import abstract, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as kref
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
-from repro_torch.models.transformer import (Model, block_ffn, layer_params, ssm_groups,
-                                            ssm_layer_decode)
+from repro_torch.models.transformer import (DecodeState, Model, block_ffn, layer_params,
+                                            ssm_groups, ssm_layer_decode)
+from repro_torch.runtime import sharding as shr
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class ServeStep:
+    fn: Callable
+    params_specs: PyTree
+    state_specs: PyTree
+    token_spec: PyTree
+    mesh: Mesh
+
+
+def abstract_params(model: Model) -> PyTree:
+    """``model``'s parameter tree on ``meta`` (shapes and dtypes only)."""
+    with abstract():
+        return model.init(torch.Generator().manual_seed(0))
+
+
+def _check_mesh(model: Model, mesh: Mesh) -> None:
+    if mesh.device is not None and mesh.device != model.device:
+        raise ValueError(f"mesh on {mesh.device}, model on {model.device}")
+
+
+def make_decode_step(
+    model: Model, mesh: Mesh, parallel: ParallelConfig,
+    batch_size: int = 1, max_len: int = 1024,
+) -> ServeStep:
+    """One token per sequence against a dense KV cache of ``max_len``:
+    ``fn(params, token [B, 1], state)`` -> (logits [B, 1, V], state), the
+    state from ``model.init_cache(batch_size, max_len)`` (updated in place,
+    as ``Model.decode_step`` does)."""
+    _check_mesh(model, mesh)
+    cfg = model.cfg
+
+    def step(params, token, state: DecodeState):
+        return model.decode_step(params, token, state)
+
+    p_specs = shr.param_specs(abstract_params(model), cfg, mesh, parallel)
+    s_specs = shr.decode_state_specs(cfg, mesh, parallel, batch_size, max_len)
+    bax = shr.bax_spec(mesh, batch_size)
+    return ServeStep(fn=step, params_specs=p_specs, state_specs=s_specs,
+                     token_spec=P(bax, None), mesh=mesh)
+
+
+def make_prefill_step(model: Model, mesh: Mesh, parallel: ParallelConfig):
+    """``fn(params, batch)`` -> the last position's logits [B, V] of a full
+    forward; returns (fn, param specs)."""
+    _check_mesh(model, mesh)
+
+    def step(params, batch):
+        logits, _ = model.forward(params, batch)
+        return logits[:, -1]
+
+    return step, shr.param_specs(abstract_params(model), model.cfg, mesh, parallel)
+
+
+def make_sp_pool_attention(mesh: Mesh, batch_axes: Tuple[str, ...]):
+    """Sequence/batch-parallel pool attention, the reference's shard_map
+    layout: pool pages split on the page dim over (batch axes x model),
+    tables split by batch rows over the batch axes and by slot columns over
+    ``model``; a global page id lives on shard ``id % nshards`` at local row
+    ``id // nshards``. Each shard's flash partial over its local pages is one
+    ``kernels.paged_attention.paged_quant_attention`` call (the CUDA kernel
+    on a card tensor, the plain version on the CPU); the partials merge over
+    ``model`` by the reference's rule: ``m_tot = max m``, ``w = exp(m -
+    m_tot)``, ``out = sum out_u w``, ``l = sum l w``. Page masses stay per
+    shard (unnormalized telemetry) and are laid back side by side.
+
+    The kernel takes no slot positions: shard j of the table's columns
+    passes ``clamp(n_pages - j * MP / TP, 0, MP / TP)`` as its valid prefix,
+    which is the reference's ``slot_pos < n_pages`` on the slice. The
+    shards run in turn on the tensors' device.
+
+    Returns run(q [B,H,hd], pool, bits) -> (out_u [B,H,hd], m [B,H],
+    l [B,H], mass [B,MP], base [B,MP]), ``pool`` holding ``k_pages``,
+    ``k_scales``, ``v_pages``, ``v_scales``, ``page_table`` [B, MP] and
+    ``n_pages`` [B]."""
+    nb = math.prod(shr.axis_size(mesh, a) for a in batch_axes)
+    tp = shr.axis_size(mesh, "model")
+    nshards = nb * tp
+
+    def run(q, pool, bits):
+        table, n_pages = pool["page_table"], pool["n_pages"]
+        b, mp = table.shape
+        n_rows = pool["k_pages"].shape[0]
+        if b % nb or mp % tp or n_rows % nshards:
+            raise ValueError(f"batch {b}, table columns {mp} and pool rows {n_rows} must "
+                             f"split over {nb} batch shards x {tp} model shards")
+        bl, cols, rows = b // nb, mp // tp, n_rows // nshards
+        out = ([], [], [], [], [])
+        for bi in range(nb):
+            seqs = slice(bi * bl, (bi + 1) * bl)
+            parts = []
+            for j in range(tp):
+                s = bi * tp + j  # the page shard of (batch shard bi, model shard j)
+                pages = slice(s * rows, (s + 1) * rows)
+                local = (table[seqs, j * cols:(j + 1) * cols] // nshards).contiguous()
+                n = torch.clamp(n_pages[seqs] - j * cols, 0, cols).to(torch.int32)
+                parts.append(pa.paged_quant_attention(
+                    q[seqs], pool["k_pages"][pages], pool["k_scales"][pages],
+                    pool["v_pages"][pages], pool["v_scales"][pages], local, n, bits))
+            m_tot = torch.stack([p[1] for p in parts]).amax(dim=0)
+            w = [torch.exp(p[1] - m_tot) for p in parts]
+            out_m, l_m = parts[0][0] * w[0][..., None], parts[0][2] * w[0]
+            for p, wj in zip(parts[1:], w[1:]):
+                out_m = out_m + p[0] * wj[..., None]
+                l_m = l_m + p[2] * wj
+            for acc, x in zip(out, (out_m, m_tot, l_m,
+                                    torch.cat([p[3] for p in parts], dim=1),
+                                    torch.cat([p[4] for p in parts], dim=1))):
+                acc.append(x)
+        return tuple(torch.cat(x, dim=0) for x in out)
+
+    return run
+
 
 # Families the tiered step serves: the attention decoders.
 TIERED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
@@ -302,3 +434,39 @@ def make_tiered_decode_step(
         return logits, tkv, extra_state, {k: torch.stack(v) for k, v in telemetry.items()}
 
     return step
+
+
+def tiered_kv_state_specs(
+    mesh: Mesh, parallel: ParallelConfig, batch_size: int = 1, n_pool_pages: int = 0
+) -> TieredKVState:
+    """Pool pages shard over the model axis (sequence-parallel KV: each model
+    shard owns a slice of every sequence's pages) when ``shard_kv_seq`` is on,
+    TP > 1 and the pages divide; batch dims over the batch axes."""
+    bax = shr.bax_spec(mesh, batch_size)
+    tp = shr.axis_size(mesh, "model")
+    axes = shr.batch_axes_for(mesh, batch_size) + ("model",)
+    n_shards = math.prod(shr.axis_size(mesh, a) for a in axes)
+    sp_on = parallel.shard_kv_seq and tp > 1 and n_pool_pages and n_pool_pages % n_shards == 0
+    page_ax = (axes if len(axes) > 1 else axes[0]) if sp_on else None
+    table_ax = "model" if sp_on else None
+    return TieredKVState(
+        c8_k=P(None, page_ax, None, None, None),
+        c8_k_scales=P(None, page_ax, None, None),
+        c8_v=P(None, page_ax, None, None, None),
+        c8_v_scales=P(None, page_ax, None, None),
+        c4_k=P(None, page_ax, None, None, None),
+        c4_k_scales=P(None, page_ax, None, None),
+        c4_v=P(None, page_ax, None, None, None),
+        c4_v_scales=P(None, page_ax, None, None),
+        warm_table=P(None, bax, table_ax),
+        warm_n=P(None, bax),
+        cold_table=P(None, bax, table_ax),
+        cold_n=P(None, bax),
+        recent_k=P(None, bax, None, None, None),
+        recent_v=P(None, bax, None, None, None),
+        recent_len=P(bax),
+        total_len=P(bax),
+        host_summary=P(None, None, None, None),
+        host_table=P(None, bax, None),
+        host_n=P(None, bax),
+    )

@@ -177,7 +177,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     for mod in ("models/moe", "models/inputs", "core/simulator", "core/arbiter",
                 "core/capacity", "quickstart", "pytree", "optim/adamw", "optim/tiered_adam",
                 "optim/grad_compress", "runtime/train", "runtime/elastic", "data/pipeline",
-                "checkpoint/ckpt", "train_tiered_lm"):
+                "checkpoint/ckpt", "train_tiered_lm", "serve_tiered_kv", "runtime/sharding",
+                "launch/mesh", "launch/cells", "launch/dryrun", "roofline/analysis",
+                "roofline/op_stats"):
         assert ROOT / "src" / "repro_torch" / f"{mod}.py" in files
     bad = []
     for f in files:

@@ -19,7 +19,13 @@ attention launches equal to the billed ones), and the mamba2 SMOKE's decode
 against its forward; a full-width MoE layer twice on the same inputs
 byte-equal; and the training path: SMOKE train steps that descend (AdamW
 and tiered Adam), the int8 MoE wire's backward equal to the CPU's, and a
-checkpoint of the card's tensors restored bit for bit. Every test skips where
+checkpoint of the card's tensors restored bit for bit; the serving example's
+8-token pages and 16-token recent window (fused attention, quant, transcode
+and dequant against their plain versions), the sequence-parallel pool
+attention on a one-device mesh (byte-equal to the per-pool kernel) and split
+over two shards in turn (against the plain version with global slot
+positions), and the dense decode step on the card against the CPU at the
+SMOKE size. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -943,3 +949,135 @@ def test_checkpoint_round_trip_of_gpu_tensors_is_bit_equal(gen, tmp_path):
     for a, b in zip(pytree.leaves(out), pytree.leaves({"params": params, "opt": state})):
         assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(raw(a), raw(b))
+
+
+# ---------------------------------------------------------------------------
+# the serving example's geometry, the dense serve steps and the sp attention
+# ---------------------------------------------------------------------------
+
+
+def _t8_operands(gen, b, h, kv, hd, t=8, r=16, mp=9):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    k8, s8k = ref.quant_kv_page(rn(11, t, kv, hd), 8)
+    v8, s8v = ref.quant_kv_page(rn(11, t, kv, hd), 8)
+    k4, s4k = ref.quant_kv_page(rn(10, t, kv, hd), 4)
+    v4, s4v = ref.quant_kv_page(rn(10, t, kv, hd), 4)
+    summary = rn(6, kv, hd)
+    q = rn(b, h, hd).to(torch.bfloat16)
+    rk, rv = rn(b, r, kv, hd).to(torch.bfloat16), rn(b, r, kv, hd).to(torch.bfloat16)
+    codes = torch.tensor([pa.TIER_INT8, pa.TIER_INT4, pa.TIER_HOST, pa.TIER_INVALID],
+                         device="cuda")
+    tier = codes[torch.randint(0, 4, (b, 3 * mp), generator=gen, device="cuda")].to(torch.int32)
+    rows = torch.where(tier == pa.TIER_INT8, 11, torch.where(tier == pa.TIER_INT4, 10, 6))
+    slot = (torch.rand((b, 3 * mp), generator=gen, device="cuda") * rows).to(torch.int32)
+    return q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, rk, rv, slot, tier
+
+
+@pytest.mark.parametrize("kv, h, hd", [(32, 32, 64), (20, 20, 128)])
+def test_kernels_at_the_serving_example_geometry(gen, kv, h, hd):
+    """The serving example's engine (``page_tokens=8``, ``recent_window=16``)
+    at zamba2_1_2b's and qwen1_5_4b's head shapes: the fused kernel cuts the
+    recent window into T/2-token chunks, so every fill of the 16-token
+    window (0, odd, one chunk, full) is held to the plain version; the page
+    kernels on [., 8, KV, hd] pages byte-equal."""
+    b, r = 4, 16
+    ops_ = _t8_operands(gen, b, h, kv, hd)
+    for fill in ([0, 1, 4, 16], [5, 8, 15, 3], [16, 16, 16, 16]):
+        rlen = torch.tensor(fill, dtype=torch.int32, device="cuda")
+        args = ops_ + (rlen, 8)
+        got = pa.fused_tiered_attention(*args)
+        want = pa.fused_tiered_attention_plain(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+    x = torch.randn((13, 8, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    for bits in (8, 4):
+        kp, ks = quant_page.quant_pages(x, bits)
+        rp, rs = ref.quant_kv_page(x, bits)
+        assert torch.equal(kp, rp) and torch.equal(ks, rs)
+        tp, ts = transcode_page.transcode_pages(kp, ks, bits, 12 - bits)
+        up, us = ref.transcode_kv_page(kp, ks, bits, 12 - bits)
+        assert torch.equal(tp, up) and torch.equal(ts, us)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequant_page.dequant_pages(kp, ks, bits, out_dtype),
+                               dequant_page.dequant_pages_plain(kp, ks, bits, out_dtype))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_sp_pool_attention_on_the_gpu(gen, bits):
+    """One device: one per-pool launch and the merge, byte-equal to the
+    per-pool kernel. Two model shards in turn (an abstract (1, 2) mesh, the
+    pages striped over them): against the plain version of the unsharded
+    pool with global slot positions, within the attention bar."""
+    from repro_torch.launch.mesh import make_abstract_mesh, make_mesh
+    from repro_torch.runtime import serve
+
+    b, h, kv, hd, t, mp, rows = 4, 20, 20, 128, 8, 8, 6
+    x = torch.randn((2, 2 * rows, t, kv, hd), generator=gen, device="cuda")
+    kp, ks = ref.quant_kv_page(x[0], bits)
+    vp, vs = ref.quant_kv_page(x[1], bits)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.randint(0, 2 * rows, (b, mp), generator=gen, device="cuda").to(torch.int32)
+    n = torch.tensor([0, 2, 4, mp], dtype=torch.int32, device="cuda")
+    pool = {"k_pages": kp, "k_scales": ks, "v_pages": vp, "v_scales": vs,
+            "page_table": table, "n_pages": n}
+    one = serve.make_sp_pool_attention(make_mesh((1, 1), ("data", "model")), ("data",))
+    before = build.launch_counts()["paged_quant_attention"]
+    got = one(q, pool, bits)
+    assert build.launch_counts()["paged_quant_attention"] == before + 1
+    want = pa.paged_quant_attention(q, kp, ks, vp, vs, table, n, bits)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    # Two shards: global page g on shard g % 2 at local row g // 2.
+    phys = torch.cat([torch.arange(0, 2 * rows, 2), torch.arange(1, 2 * rows, 2)]).cuda()
+    cols = mp // 2
+    shard_of_col = (torch.arange(mp, device="cuda") // cols)[None]
+    striped = (table // 2) * 2 + shard_of_col
+    sharded = {"k_pages": kp[phys], "k_scales": ks[phys], "v_pages": vp[phys],
+               "v_scales": vs[phys], "page_table": striped.to(torch.int32), "n_pages": n}
+    two = serve.make_sp_pool_attention(make_abstract_mesh((1, 2), ("data", "model")), ("data",))
+    out, m, lsum, mass, base = two(q, sharded, bits)
+    torch.cuda.synchronize()
+    for j in range(2):
+        sl = slice(j * cols, (j + 1) * cols)
+        pos = torch.arange(j * cols, (j + 1) * cols, dtype=torch.int32, device="cuda")
+        w = ref.paged_quant_attention(q, kp, ks, vp, vs, striped[:, sl].contiguous(), n, bits,
+                                      slot_pos=pos[None].expand(b, cols))
+        torch.testing.assert_close(mass[:, sl], w[3], **TOL)
+        torch.testing.assert_close(base[:, sl], w[4], **TOL)
+    w = ref.paged_quant_attention(q, kp, ks, vp, vs, striped, n, bits)
+    live = w[2] > 0
+    torch.testing.assert_close((out / lsum.clamp_min(1e-30)[..., None])[live],
+                               (w[0] / w[2].clamp_min(1e-30)[..., None])[live], **TOL)
+    torch.testing.assert_close((m + lsum.log())[live], (w[1] + w[2].log())[live], **TOL)
+
+
+def test_dense_decode_step_on_the_gpu_matches_the_cpu(gen):
+    """``make_prefill_step`` and 4 steps of ``make_decode_step`` on the
+    qwen1_5_4b SMOKE: the card against the CPU on the same weights, within
+    tests/test_torch_model.py's logits bar."""
+    from repro_torch import pytree
+    from repro_torch.configs import ParallelConfig, get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.runtime import serve
+
+    outs = {}
+    cfg = get_smoke("qwen1_5_4b")
+    cpu_params = Model(cfg, device="cpu").init(0)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        params = pytree.tree_map(lambda t: t.to(dev), cpu_params)
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        fn, _ = serve.make_prefill_step(model, mesh, ParallelConfig())
+        logits = [fn(params, {"tokens": tokens.to(dev)}).float().cpu()]
+        step = serve.make_decode_step(model, mesh, ParallelConfig(), 2, 32)
+        state = model.init_cache(2, 32)
+        for i in range(4):
+            lg, state = step.fn(params, tokens[:, i:i + 1].to(dev), state)
+            logits.append(lg.float().cpu())
+        outs[dev] = logits
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
