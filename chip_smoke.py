@@ -149,6 +149,15 @@ Phases (any failure exits non-zero before the result line):
      and off, and under a ``seeded_storm`` fault plan;
   4. mid-run, one tiered decode step on the same state: kernel vs plain
      branch, and the per-pool step vs the fused step (logits, hotness);
+  4b. every engine on the card replays its decode step as one CUDA graph,
+     captured once per route: in phases 2b, 2c, 2g, 3 and 6 the captured
+     step (a replay) on the mid-run state is held to the eager kernel step
+     on a copy of it (logits, hotness, new state byte-equal, or, naming the
+     outputs that differ, phase 4's bars), and, for the five served
+     families, 40 engine steps from one start through the captured engine
+     and again with the eager kernel step swapped in must give equal greedy
+     tokens (two windows, page-outs, migrations); captures per route are
+     printed (one each);
   5. each kernel held to its plain version again and timed at the shapes
      the run gave it (the per-pool attention kernel through its unchecked
      launch, so its wrapper's host range check is not timed; ``quant_pages``
@@ -171,8 +180,8 @@ Phases (any failure exits non-zero before the result line):
      version and to ``quant_pages(., 8)``), launch counts equal the cache's
      calls, one kernel-branch step agrees with the plain branch, and phase
      5's timings are taken again at this run's shapes (hd=64);
-  7. a profile of one decode step of each engine, last: once the profiler
-     has run, every later launch costs more host time.
+  7. a profile of one decode step of each engine, eager and captured, last:
+     once the profiler has run, every later launch costs more host time.
 The engines that stay resident for the profiles are counted out of the peak
 memory of the runs that follow them.
 Media busy seconds in the engine are modeled time from the catalog's
@@ -225,6 +234,7 @@ from repro_torch.models.transformer import _attn_layer_count  # noqa: E402
 from repro_torch.optim import tiered_adam  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
+from repro_torch.runtime.graph import COPIED_FIELDS, GraphedStep, route as graph_route  # noqa: E402
 from repro_torch import serve_tiered_kv  # noqa: E402
 from repro_torch.runtime.train import make_train_step  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
@@ -309,6 +319,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 6
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 20, 200
 RESUME_LAYERS, RESUME_STEPS, RESUME_RTOL = 2, 4, 1e-3
 TRAIN_MOE_LAYERS = 1
+# Phase 4b: the captured step (a CUDA graph of the whole tiered step,
+# replayed per token) on each run's mid-run state against the eager kernel
+# step, and GRAPH_STEPS engine steps (two 16-step windows and more, with
+# page-outs and window-boundary migrations) of two GRAPH_PROMPTS-token
+# requests from one start, once through the captured engine and once with
+# the eager kernel step swapped in: the greedy tokens must be equal. Its
+# engines hold GRAPH_MAX_SEQ-token caches, so each fits beside the engines
+# left resident.
+GRAPH_STEPS, GRAPH_PROMPTS, GRAPH_MAX_SEQ = 40, (48, 72), 256
+# The attention wrappers a captured step holds; each one's kernel symbol is
+# its name + "_kernel" (phase 7 counts their events inside the replays).
+ATTENTION_KERNELS = ("fused_tiered_attention", "paged_quant_attention")
 # Phase 2k: the serving example (repro_torch.serve_tiered_kv, the reference
 # example's defaults: 4 requests of 48 tokens, 32 new tokens, 2 slots, alpha
 # 0.3, analytical, async + prefetch; 8-token pages, a 16-token recent window)
@@ -712,6 +734,98 @@ def per_pool_compare(eng: TieredEngine) -> dict:
     return out
 
 
+def graph_compare(eng: TieredEngine) -> dict:
+    """Phase 4b: the engine's captured step (a replay, no new capture) on
+    its live mid-run state against the eager kernel step on a copy of the
+    same state (the operands the step replaces are cloned; the class
+    buffers and host summary, which it only reads, are shared): logits,
+    telemetry and the new state byte-equal. Where an output is not, it is
+    named and the step is held to phase 4's bars; the tables and lengths
+    must be equal."""
+    what = f"{eng.cfg.name} captured step vs eager kernel step"
+    graphed = eng._step_fn
+    if not isinstance(graphed, GraphedStep):
+        fail(f"{eng.cfg.name}: the engine's step is {type(graphed).__name__}, not the captured one")
+    tokens, st = step_tokens(eng), eng.cache.state
+    copy = dataclasses.replace(st, **{f: getattr(st, f).clone() for f in COPIED_FIELDS})
+    extra = None if eng.ssm_state is None else tuple(x.clone() for x in eng.ssm_state)
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    captures = dict(graphed.captures)
+    lg, tg, eg, hg = graphed(eng.params, tokens, st, eng.ssm_state)
+    lw, tw, ew, hw = eager(eng.params, tokens, copy, extra)
+    torch.cuda.synchronize()
+    if graphed.captures != captures:
+        fail(f"{what}: the compare captured again ({captures} -> {graphed.captures})")
+    pairs = {"logits": (lg, lw), **{f"hotness_{k}": (hg[k], hw[k]) for k in hw},
+             **{f: (getattr(tg, f), getattr(tw, f)) for f in COPIED_FIELDS},
+             **{f"ssm_{i}": ab for i, ab in enumerate(zip(eg or (), ew or ()))}}
+    differ = {n: float((a.float() - b.float()).abs().max()) for n, (a, b) in pairs.items()
+              if not torch.equal(a, b)}
+    out = {"byte_equal": not differ, "differ": differ, "captures": captures,
+           "replays": graphed.replays}
+    if differ:
+        exact = set(differ) & {"recent_len", "total_len", "warm_table", "warm_n", "cold_table",
+                               "cold_n", "host_table", "host_n"}
+        if exact:
+            fail(f"{what}: {sorted(exact)} differ")
+        out["bars"] = _compare_steps(lg, lw, hg, hw, what)
+    log(f"phase 4b ok: {what}: byte-equal {not differ}"
+        + (f", differing outputs {differ}" if differ else "")
+        + f"; captures {captures}, replays {graphed.replays}")
+    return out
+
+
+def graph_tokens(cfg, model, params, host_media_device: str = "") -> dict:
+    """Phase 4b's token run: GRAPH_STEPS steps of two GRAPH_PROMPTS-token
+    requests on the default path (async + prefetch at ASYNC_ALPHA, 16-step
+    windows), from one start, through the captured engine and again with
+    the eager kernel step swapped in. Greedy tokens must be equal; each run
+    must page out, cross two window boundaries and migrate; the captured
+    engine captures once. Reports both runs' decode ms/step (host clock, the
+    telemetry copy included) in this call, one after the other."""
+    runs = {}
+    for name in ("captured", "eager"):
+        free_device()
+        ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
+                                async_migration=True, prefetch=True, faults=False,
+                                host_media_device=host_media_device)
+        eng = TieredEngine(model, params, batch_slots=2, page_tokens=T,
+                           max_seq_len=GRAPH_MAX_SEQ, recent_window=R, ts=ts, device=DEV)
+        if name == "eager":
+            eng._step_fn = serve.make_tiered_decode_step(model, ts, use_kernels=True, device=DEV)
+        rng = np.random.default_rng(SEED + 16)
+        reqs = [eng.submit(rng.integers(1, cfg.vocab_size, n), max_new_tokens=GRAPH_STEPS + 1)
+                for n in GRAPH_PROMPTS]
+        eng._fill_slots()
+        quant0 = build.launch_counts()["quant_pages"]
+        torch.cuda.synchronize()
+        for _ in range(GRAPH_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        page_outs = build.launch_counts()["quant_pages"] - quant0
+        stats = eng.finish()
+        runs[name] = {"tokens": [r.out_tokens for r in reqs], "windows": stats.windows,
+                      "migrations": stats.migrations, "page_out_launches": page_outs,
+                      "decode_ms_per_step": stats.decode_s / stats.steps * 1e3,
+                      "captures": dict(getattr(eng._step_fn, "captures", {})),
+                      "capture_s": getattr(eng._step_fn, "capture_s", 0.0)}
+        if stats.windows < 2 or stats.migrations < 1 or page_outs < 1:
+            fail(f"{cfg.name} {name} token run: {stats.windows} windows, {stats.migrations} "
+                 f"migrations, {page_outs} page-out launches; expected >= 2, >= 1, >= 1")
+        del eng, reqs
+    free_device()
+    what = f"{cfg.name} greedy tokens, captured vs eager over {GRAPH_STEPS} steps"
+    if runs["captured"]["tokens"] != runs["eager"]["tokens"]:
+        fail(f"{what}: differ: {runs['captured']['tokens']} vs {runs['eager']['tokens']}")
+    if runs["captured"]["captures"] != {"fused": 1}:
+        fail(f"{what}: captures {runs['captured']['captures']}, expected one")
+    out = {k: {f: v for f, v in r.items() if f != "tokens"} for k, r in runs.items()}
+    out["tokens_equal"] = True
+    out["first_tokens"] = [t[:8] for t in runs["captured"]["tokens"]]
+    log(f"phase 4b ok: {what}: equal; {json.dumps(out)}")
+    return out
+
+
 def submit_requests(eng: TieredEngine, cfg) -> list:
     rng = np.random.default_rng(SEED)
     return [eng.submit(rng.integers(1, cfg.vocab_size, int(n)), max_new_tokens=NEW_TOKENS)
@@ -872,6 +986,7 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
                                    else "") + (" on cxl_hw" if cxl else ""))
     log(f"phase {phase} ({what}): alpha {ts.alpha}, async_migration {ts.async_migration}, "
         f"prefetch {ts.prefetch}")
+    tokens_run = graph_tokens(cfg, model, params, host_media_device)
     torch.cuda.reset_peak_memory_stats()
     eng = TieredEngine(model, params, batch_slots=2, page_tokens=T, max_seq_len=1024,
                        recent_window=R, ts=ts, device=DEV)
@@ -893,7 +1008,8 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
         host8_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts(spies)
 
-    compares = {"kernel_vs_plain": step_compare(eng), "per_pool_vs_fused": per_pool_compare(eng)}
+    compares = {"kernel_vs_plain": step_compare(eng), "per_pool_vs_fused": per_pool_compare(eng),
+                "captured_vs_eager": graph_compare(eng)}
     # Phase 5 times the attention kernels on this mid-run state: keep its
     # tables and recent window (the class buffers are shared and stay valid).
     st = eng.cache.state
@@ -964,6 +1080,8 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
                  "page-outs")
     check_counts(counts, what)
     check_bf16_page_out(spies, what)
+    if eng._step_fn.captures != {"fused": 1, "per_pool": 1}:
+        fail(f"{what}: captures {eng._step_fn.captures}, expected one per route")
     if stats.attn_launches != counts["fused_tiered_attention"] + pp_counts["paged_quant_attention"]:
         fail(f"{what}: billed attention launches {stats.attn_launches} != counted "
              f"{counts} + {pp_counts}")
@@ -974,6 +1092,10 @@ def phase_async(cfg, model, params, host_media_device: str = "", phase: str = "3
     metrics["alpha"] = ts.alpha
     metrics["layers"] = cfg.n_layers
     metrics["prefetch_invalidated"] = invalidated
+    metrics["captures"] = dict(eng._step_fn.captures)
+    metrics["replays"] = eng._step_fn.replays
+    metrics["capture_s"] = eng._step_fn.capture_s  # inside decode_ms_per_step's sum
+    metrics["graph_tokens"] = tokens_run
     metrics["per_pool"] = {"steps": PER_POOL_STEPS, "decode_ms_per_step":
                            pp_decode / PER_POOL_STEPS * 1e3, "wall_s": pp_wall}
     if cxl:
@@ -1383,39 +1505,64 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
     return out
 
 
-def phase_profile(eng, state) -> dict:
+def phase_profile(eng, state, captured: bool = False) -> dict:
     """Where one decode step's time goes: 3 kernel-branch steps on the
-    mid-run state under ``torch.profiler``; device time by kernel and the
-    device's busy share of the host wall time. Only the device's own events
-    (kernels, copies) are summed: an operator's self device time is the time
-    of the kernels it launched, which appear as events of their own."""
+    mid-run state under ``torch.profiler`` (the eager step, or with
+    ``captured`` the engine's captured step, replayed); device time by
+    kernel and the device's busy share of the host wall time. Only the
+    device's own events (kernels, copies) are summed: an operator's self
+    device time is the time of the kernels it launched, which appear as
+    events of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    step = (eng._step_fn if captured else
+            serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV))
+    captures = dict(getattr(step, "captures", {}))
     tokens = torch.ones((eng.bs, 1), dtype=torch.int64, device=DEV)
     step(eng.params, tokens, state, eng.ssm_state)
     torch.cuda.synchronize()
     n = 3
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        begin.record()
         for _ in range(n):
             step(eng.params, tokens, state, eng.ssm_state)
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if device_ms <= 0:
-        fail("the profiler recorded no device time")
+        fail(f"the profiler recorded no device time ({'captured' if captured else 'eager'} step)")
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    seen = {}
+    if captured:
+        if step.captures != captures:
+            fail(f"phase 7 ({eng.cfg.name}): the captured profile captured again")
+        # The replays' launch counts come from the capture's record: hold
+        # them to the kernel events the profiler saw inside the replays.
+        held = step.graphs[graph_route()].launches
+        for name in ATTENTION_KERNELS:
+            seen[name] = sum(e.count for e in events if f"{name}_kernel" in e.key)
+            if seen[name] != held.get(name, 0) * n:
+                fail(f"phase 7 ({eng.cfg.name}): the profiler saw {seen[name]} {name} kernels in "
+                     f"{n} replays; the graph holds {held.get(name, 0)} a replay")
+        if not any(seen.values()):
+            fail(f"phase 7 ({eng.cfg.name}): no attention kernel ran in the replays")
     out = {
+        "step": "captured" if captured else "eager",
         "step_wall_ms": wall_ms,
         "step_device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
+        "event_ms_per_step": begin.elapsed_time(end) / n,
         "top_device_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top},
     }
-    log(f"phase 7 profile ({eng.cfg.name}): {json.dumps(out)}")
+    if captured:
+        out["attention_kernel_events"] = seen
+    log(f"phase 7 profile ({eng.cfg.name}, {out['step']} step): {json.dumps(out)}")
     return out
 
 
@@ -1455,6 +1602,9 @@ def phase_one_step(name: str) -> dict:
         out["vision_forward"] = vlm_forward(model, params)
         out["mrope_two_slots"] = mrope_step_check(eng)
     out["step_compare"] = step_compare(eng)
+    out["captured_vs_eager"] = graph_compare(eng)
+    if cfg.mrope:
+        out["graph_tokens"] = graph_tokens(cfg, model, params)
     log(f"phase 2b ok ({name} at {cfg.n_layers} of {get(name).n_layers} layers, full width): "
         f"{json.dumps(out)}")
     del eng, model, params, req
@@ -1487,9 +1637,10 @@ def vlm_forward(model, params) -> dict:
 
 def mrope_step_check(eng: TieredEngine) -> dict:
     """A second request, of another length, into the free slot, then one
-    engine decode step in which every layer's q/k (from the [3, B, 1]
-    positions the step builds) are recomputed as 1-D RoPE at each slot's own
-    position and must be equal."""
+    engine decode step (the eager kernel step, whose projection can be
+    patched) in which every layer's q/k (from the [3, B, 1] positions the
+    step builds) are recomputed as 1-D RoPE at each slot's own position and
+    must be equal."""
     cfg = eng.cfg
     eng.submit(np.random.default_rng(SEED + 3).integers(1, cfg.vocab_size, VLM_SECOND_PROMPT),
                max_new_tokens=NEW_TOKENS)
@@ -1509,12 +1660,17 @@ def mrope_step_check(eng: TieredEngine) -> dict:
         diffs.append(max(float((q - q1).abs().max()), float((k - k1).abs().max())))
         return q, k, v
 
+    # The patched projection runs only in an eager step: the engine's
+    # captured step would replay without calling it.
+    graphed = eng._step_fn
+    eng._step_fn = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
     attention._project_qkv = check
     try:
         eng.step()
         torch.cuda.synchronize()
     finally:
         attention._project_qkv = project
+        eng._step_fn = graphed
     if len(diffs) != eng.la or max(diffs) != 0.0:
         fail(f"{cfg.name}: 2-slot M-RoPE q/k differ from 1-D RoPE by {diffs}")
     return {"slot_lengths": lens, "layers_checked": len(diffs), "max_abs_diff": max(diffs)}
@@ -2939,6 +3095,9 @@ def main() -> int:
     prof = phase_profile(eng, state)
     zprof = phase_profile(zeng, zstate)
     q3prof = phase_profile(q3eng, q3state)
+    gprof = phase_profile(eng, state, captured=True)
+    zgprof = phase_profile(zeng, zstate, captured=True)
+    q3gprof = phase_profile(q3eng, q3state, captured=True)
     walls["7"] = time.perf_counter() - t0
     # Phase 2k (d): the dry-run on the host, after every timed phase.
     dryrun_cells = timed("2k_dryrun", phase_dryrun)
@@ -2988,6 +3147,9 @@ def main() -> int:
                     "modes": modes, "decode_step_profile": prof,
                     "zamba2_decode_step_profile": zprof,
                     "qwen3_32b_decode_step_profile": q3prof,
+                    "decode_step_profile_captured": gprof,
+                    "zamba2_decode_step_profile_captured": zgprof,
+                    "qwen3_32b_decode_step_profile_captured": q3gprof,
                     "smoke_wall_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

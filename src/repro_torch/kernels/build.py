@@ -10,11 +10,15 @@ parallel, through ``build_all``); nothing is built when a module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper issued: a wrapper
 adds one right after its kernel was launched and nowhere else, so the count
-shows whether a run really went through the kernel.
+shows whether a run really went through the kernel. Under a CUDA graph
+capture a launch is only recorded, not run: ``recording_launches`` keeps
+those counts apart, and each replay of the graph adds them
+(``count_replay``), so ``LAUNCHES`` still counts launches that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,9 +49,31 @@ LAUNCHES: Dict[str, int] = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# The launches of the capture under way (``recording_launches``), else None.
+_RECORDED: Optional[Dict[str, int]] = None
+
 
 def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+    (LAUNCHES if _RECORDED is None else _RECORDED)[kernel] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Counts the launches made inside the block apart from ``LAUNCHES``
+    and yields them: the launches a CUDA graph capture puts into the graph,
+    which run only when it is replayed."""
+    global _RECORDED
+    _RECORDED = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _RECORDED
+    finally:
+        _RECORDED = None
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """One replay of a graph that holds ``launches`` (per kernel)."""
+    for k, n in launches.items():
+        LAUNCHES[k] += n
 
 
 def reset_launch_counts() -> None:
@@ -154,6 +180,14 @@ def check_aligned(kernel: str, name: str, t, nbytes: int) -> None:
     if t.data_ptr() % nbytes:
         raise ValueError(f"{kernel}: {name} must be {nbytes}-byte aligned for the kernel's "
                          f"vectors (data pointer {t.data_ptr():#x})")
+
+
+def capturing(device) -> bool:
+    """Whether a CUDA graph capture is under way on ``device``'s current
+    stream (False on the CPU, where nothing is captured)."""
+    import torch
+
+    return torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def stream_handle(device) -> int:

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import capturing
 from repro_torch.kernels.cxl_line import cxl_decode_pages, cxl_encode_pages  # noqa: F401
 from repro_torch.kernels.dequant_page import dequant_pages  # noqa: F401  (public dispatch name)
 from repro_torch.kernels.paged_attention import (
@@ -56,6 +57,11 @@ def use_fused(flag: bool) -> None:
     reference."""
     global _USE_FUSED
     _USE_FUSED = bool(flag)
+
+
+def fused_route() -> bool:
+    """The decode route ``use_fused`` selects: True for the fused kernel."""
+    return _USE_FUSED
 
 
 def reset_copy_bytes() -> None:
@@ -169,6 +175,13 @@ def _class_operands(sel, t, kv, dummy_dtype, last_dim, device):
     return cat, offs
 
 
+def class_rows_error(cls: str, lo: int, hi: int, rows: int) -> IndexError:
+    return IndexError(
+        f"unified table addresses {cls} class row {lo}..{hi} outside the class "
+        f"buffer's {rows} rows (stale slot with a live tier code?)"
+    )
+
+
 def _check_class_bounds(uni_slot, uni_tier, rows8: int, rows4: int) -> None:
     """Every VALID unified-table row must address a real class-buffer row
     (the kernel trusts the table). Stale rows are already ``TIER_INVALID``
@@ -180,11 +193,7 @@ def _check_class_bounds(uni_slot, uni_tier, rows8: int, rows4: int) -> None:
         if bool(sel.any()):
             s = slot[sel]
             if int(s.min()) < 0 or int(s.max()) >= rows:
-                raise IndexError(
-                    f"unified table addresses {cls} class row "
-                    f"{int(s.min())}..{int(s.max())} outside the class "
-                    f"buffer's {rows} rows (stale slot with a live tier code?)"
-                )
+                raise class_rows_error(cls, int(s.min()), int(s.max()), rows)
 
 
 def _unified_operands(q, pools, recent_k, host):
@@ -239,7 +248,11 @@ def _unified_operands(q, pools, recent_k, host):
 
     k8, s8k, v8, s8v = ops8
     k4, s4k, v4, s4v = ops4
-    _check_class_bounds(uni_slot, uni_tier, int(k8.shape[0]), int(k4.shape[0]))
+    # A captured step skips the check (it copies to the host), as the
+    # reference skips it under tracing; the cache checks its tables at every
+    # commit (``kv_cache._TableEditor.commit``).
+    if not capturing(dev):
+        _check_class_bounds(uni_slot, uni_tier, int(k8.shape[0]), int(k4.shape[0]))
     return (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, uni_slot, uni_tier, t, layout)
 
 

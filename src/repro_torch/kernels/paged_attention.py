@@ -198,7 +198,8 @@ def paged_quant_attention(
     l [B,H], mass [B,MP], base [B,MP]); rows >= n_pages give mass 0 and base
     -1e30. On CPU tensors the plain version ``ref.paged_quant_attention``
     runs. On the GPU the operands are checked, the valid table prefix is held
-    to the pool's rows (one copy to the host), and
+    to the pool's rows (one copy to the host; skipped while a CUDA graph is
+    captured), and
     ``paged_quant_attention_launch`` launches the kernel."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
@@ -225,10 +226,13 @@ def paged_quant_attention(
     ):
         build.check_operand(name, nm, x, dt, dev, shape)
     # The kernel trusts the valid table prefix: every entry must be a pool row.
-    valid = torch.arange(mp, device=dev)[None] < n_pages[:, None]
-    rows = page_table[valid]
-    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= p):
-        raise IndexError(f"{name}: page table addresses rows outside the pool's {p} rows")
+    # A captured step skips the check (a copy to the host); the cache checks
+    # its tables at every commit.
+    if not build.capturing(dev):
+        valid = torch.arange(mp, device=dev)[None] < n_pages[:, None]
+        rows = page_table[valid]
+        if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= p):
+            raise IndexError(f"{name}: page table addresses rows outside the pool's {p} rows")
     return paged_quant_attention_launch(q, k_pages, k_scales, v_pages, v_scales, page_table,
                                         n_pages, bits)
 

@@ -13,7 +13,8 @@ KV-page quantization layout (serving hot path):
 Divisions by a constant go through a 0-dim tensor on the operand's device:
 PyTorch's CUDA division by a Python scalar multiplies by the reciprocal,
 which flips round-half-even quantization ties against the kernels' IEEE
-division.
+division. The tensor is filled on the device (``new_full``), not copied from
+the host, so a CUDA graph can capture the division.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ NEG_INF = -1e30
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """IEEE ``x / c`` on every device (see the module docstring)."""
-    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+    return x / x.new_full((), c, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

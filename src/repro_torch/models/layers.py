@@ -94,10 +94,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if positions3.dim() != 3 or positions3.shape[0] != 3:
         raise ValueError(f"mrope positions must be [3, B, S], got {tuple(positions3.shape)}")
     freqs = rope_freqs(head_dim, theta, x.device)  # [half]
-    # Which section (and so which position axis) each rotary dim uses.
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.as_tensor(sections, device=x.device),
-                                     output_size=half)  # [half]
+    # Which section (and so which position axis) each rotary dim uses: the
+    # count of section ends at or below it. The ends are Python ints, so
+    # nothing is copied from the host and a CUDA graph can capture the step.
+    dims = torch.arange(half, device=x.device)
+    sec_id = (dims >= sections[0]).long() + (dims >= sections[0] + sections[1]).long()  # [half]
     pos_per_dim = positions3.to(torch.float32)[sec_id]  # [half, B, S]
     angles = pos_per_dim.permute(1, 2, 0) * freqs  # [B, S, half]
     cos = torch.cos(angles)[..., None, :]

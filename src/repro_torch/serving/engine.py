@@ -11,7 +11,9 @@ injection and ``host_media_device`` rebinds the host tiers (on ``cxl_hw``
 the HOST8 pages read back through the ``cxl_decode_pages`` kernel). On the
 GPU every decode step runs the fused CUDA attention kernel in every
 attention layer (or, under ``ops.use_fused(False)``, one per-pool kernel per
-pool); on the CPU it runs the plain oracle, as the JAX engine does. A hybrid
+pool), the whole step captured once as a CUDA graph and replayed per token
+(``runtime.graph.GraphedStep``, the counterpart of the JAX engine's jitted
+step); on the CPU it runs the plain oracle eagerly, as the JAX engine does. A hybrid
 arch (Zamba2) also carries each slot's SSM side state (conv, ssm) through
 the decode steps; its prefill reuses the SSM states ``Model.prefill``
 computes (the reference engine scans the prompt a second time for them, and
@@ -46,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.media.faults import default_plan
 from repro_torch.models.transformer import Model, _attn_layer_count, ssm_state_shapes
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime.graph import GraphedStep
 from repro_torch.runtime.serve import check_tiered
 from repro_torch.serving.kv_cache import ParkedSlot, TieredKVCache
 
@@ -172,10 +175,12 @@ class TieredEngine:
             device=self.device,
         )
         # The fused CUDA kernel on the GPU; the plain oracle on the CPU (the
-        # JAX engine's own choice, ``use_kernels=False``).
-        self._step_fn = serve_rt.make_tiered_decode_step(
-            model, ts, use_kernels=self.device.type == "cuda", device=self.device
-        )
+        # JAX engine's own choice, ``use_kernels=False``). On the GPU the
+        # step is captured once as a CUDA graph and replayed per token, as
+        # the JAX engine jits it; on the CPU it runs eagerly.
+        on_gpu = self.device.type == "cuda"
+        step = serve_rt.make_tiered_decode_step(model, ts, use_kernels=on_gpu, device=self.device)
+        self._step_fn = GraphedStep(step, self.device) if on_gpu else step
         # SSM side state of a hybrid arch: (conv bf16, ssm f32) per layer
         # and slot; None for the dense family.
         self.ssm_state = None

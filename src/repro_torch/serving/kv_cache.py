@@ -151,11 +151,13 @@ class ParkedSlot:
 class _TableEditor:
     """Batched host-side edits of the device page tables: all mutations of
     one migrate/append batch happen on numpy copies and ``commit`` writes
-    each table back to the device once. Covers the host sentinel table too."""
+    each table back to the device once. Covers the host sentinel table too.
+    ``classes`` names each device pool's codec-class buffer ("c8"/"c4")."""
 
     _POOLS = ("warm", "cold", "host")
 
-    def __init__(self, state: TieredKVState):
+    def __init__(self, state: TieredKVState, classes: Dict[str, str]):
+        self.classes = classes
         self.tables = {p: _np(getattr(state, f"{p}_table")).copy() for p in self._POOLS}
         self.counts = {p: _np(getattr(state, f"{p}_n")).copy() for p in self._POOLS}
 
@@ -176,7 +178,25 @@ class _TableEditor:
             t[la, sl, n] = ps
             c[la, sl] = n + 1
 
+    def check_rows(self, state: TieredKVState) -> None:
+        """Every valid entry of the edited tables must address a row of its
+        class buffer (the host table: of the host summary); the attention
+        kernels trust the tables. This is the decode step's class-bounds
+        check (``kops._check_class_bounds``), made once per edit on the
+        host copies instead of once per layer and step on the device."""
+        for p in self._POOLS:
+            if p == "host":
+                cls, rows = "host summary", state.host_summary.shape[1]
+            else:
+                c = self.classes[p]
+                cls, rows = ("int8" if c == "c8" else "int4"), getattr(state, f"{c}_k").shape[1]
+            t, n = self.tables[p], self.counts[p]
+            valid = t[np.arange(t.shape[-1]) < n[..., None]]
+            if valid.size and (valid.min() < 0 or valid.max() >= rows):
+                raise kops.class_rows_error(cls, int(valid.min()), int(valid.max()), int(rows))
+
     def commit(self, state: TieredKVState) -> TieredKVState:
+        self.check_rows(state)
         dev = state.warm_table.device
         kw = {}
         for p in self._POOLS:
@@ -394,6 +414,9 @@ class TieredKVCache:
     def _free_slot(self, pool: str, pool_slot: int) -> None:
         self._alloc[pool].free(int(pool_slot))
 
+    def _editor(self) -> _TableEditor:
+        return _TableEditor(self.state, self._cls)
+
     # ------------------------------------------------ class-major addressing
     def _same_class(self, src: int, dst: int) -> bool:
         """Device->device move within one codec class: payload bytes stay in
@@ -464,7 +487,7 @@ class TieredKVCache:
             summ, device=self.device
         )
         own = editor is None
-        editor = editor or _TableEditor(self.state)
+        editor = editor or self._editor()
         editor.insert("host", layers, slots, hs)
         if own:
             self.state = editor.commit(self.state)
@@ -478,7 +501,7 @@ class TieredKVCache:
             return
         hs = self._host_slot[rids]
         own = editor is None
-        editor = editor or _TableEditor(self.state)
+        editor = editor or self._editor()
         editor.remove("host", layers, slots, hs)
         if own:
             self.state = editor.commit(self.state)
@@ -535,7 +558,7 @@ class TieredKVCache:
             cold_fit = self._claim_fits("cold", rids[rest])
             dst_of[rest[cold_fit]] = COLD
 
-        editor = _TableEditor(self.state)
+        editor = self._editor()
         for dst in (WARM, COLD, HOST4):
             sel = np.where(dst_of == dst)[0]
             if sel.size == 0:
@@ -753,7 +776,7 @@ class TieredKVCache:
         cohorts = self.plan_cohorts(rids, dsts)
         if not cohorts:
             return 0
-        editor = _TableEditor(self.state)
+        editor = self._editor()
         moved = 0
         for crids, s, d in cohorts:
             self._exec_cohort(crids, s, d, editor)
@@ -865,7 +888,7 @@ class TieredKVCache:
         slots = (rids // self.max_pages) % self.bs
         if dst is not None and self._same_class(src, dst):
             ps = self._pool_slot[rids]
-            editor = _TableEditor(self.state)
+            editor = self._editor()
             editor.remove(_POOL[src], layers, slots, ps)
             self.state = editor.commit(self.state)
             # Rows stay owned by src's allocator until commit exchanges them.
@@ -875,7 +898,7 @@ class TieredKVCache:
             pool = _POOL[src]
             ps = self._pool_slot[rids]
             payload = dict(zip(PAYLOAD_KEYS, self._gather_rows(pool, layers, ps)))
-            editor = _TableEditor(self.state)
+            editor = self._editor()
             editor.remove(pool, layers, slots, ps)
             self.state = editor.commit(self.state)
             for x in ps:
@@ -944,7 +967,7 @@ class TieredKVCache:
                 frids = rids[fi]
                 layers = frids // (self.bs * self.max_pages)
                 slots = (frids // self.max_pages) % self.bs
-                editor = _TableEditor(self.state)
+                editor = self._editor()
                 sel = torch.as_tensor(fi)
                 self._scatter_device(
                     dst, frids, layers, slots,
@@ -987,7 +1010,7 @@ class TieredKVCache:
             frids, fps = rids[fi], ps[fi]
             layers = frids // (self.bs * self.max_pages)
             slots = (frids // self.max_pages) % self.bs
-            editor = _TableEditor(self.state)
+            editor = self._editor()
             self._exchange_rows(src, dst, frids, fps)
             editor.insert(_POOL[dst], layers, slots, fps)
             self.state = editor.commit(self.state)
@@ -1000,7 +1023,7 @@ class TieredKVCache:
             spill_dst = self._spill_target(dst)
             if spill_dst == src:
                 # Spilling back into the source pool: the rows never left it.
-                editor = _TableEditor(self.state)
+                editor = self._editor()
                 editor.insert(_POOL[src], layers, slots, sps)
                 self.state = editor.commit(self.state)
                 self._set_placement(srids, src)
@@ -1162,12 +1185,12 @@ class TieredKVCache:
 
     def _table_remove(self, pool: str, layer: int, slot: int, pool_slot: int):
         """Drop one entry from a device page-table row (swap with the last)."""
-        editor = _TableEditor(self.state)
+        editor = self._editor()
         editor.remove(pool, [layer], [slot], [pool_slot])
         self.state = editor.commit(self.state)
 
     def _table_append(self, pool: str, layer: int, slot: int, pool_slot: int):
-        editor = _TableEditor(self.state)
+        editor = self._editor()
         editor.insert(pool, [layer], [slot], [pool_slot])
         self.state = editor.commit(self.state)
 

@@ -179,7 +179,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                 "optim/grad_compress", "runtime/train", "runtime/elastic", "data/pipeline",
                 "checkpoint/ckpt", "train_tiered_lm", "serve_tiered_kv", "runtime/sharding",
                 "launch/mesh", "launch/cells", "launch/dryrun", "roofline/analysis",
-                "roofline/op_stats"):
+                "roofline/op_stats", "runtime/graph"):
         assert ROOT / "src" / "repro_torch" / f"{mod}.py" in files
     bad = []
     for f in files:

@@ -25,7 +25,11 @@ and dequant against their plain versions), the sequence-parallel pool
 attention on a one-device mesh (byte-equal to the per-pool kernel) and split
 over two shards in turn (against the plain version with global slot
 positions), and the dense decode step on the card against the CPU at the
-SMOKE size. Every test skips where
+SMOKE size; and the engine's captured decode step (one CUDA graph replayed
+per token) byte-equal to the eager kernel step at every step of the dense,
+GQA, MoE, VLM and hybrid SMOKE engines, captured again on a route change
+and on a moved class buffer, and its launches counted per replay with no
+class-bounds check inside a replay. Every test skips where
 ``torch.cuda.is_available()`` is False; on the GPU host run
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -1081,3 +1085,149 @@ def test_dense_decode_step_on_the_gpu_matches_the_cpu(gen):
         outs[dev] = logits
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
+
+
+# ------------------------------------------------ the captured decode step
+GRAPH_ARCHS = ["qwen1_5_4b", "qwen3_32b", "qwen3_moe_235b", "qwen2_vl_72b", "zamba2_1_2b"]
+
+
+def _graph_engine(arch, window_steps=5):
+    """A SMOKE engine on the card at alpha 0.1 (warm, cold and host pages)
+    with two requests prefilled; its step is the captured one."""
+    import numpy as np
+
+    from repro_torch.configs import TierScapeRunConfig
+    from repro_torch.serving.engine import TieredEngine
+
+    model, params = _smoke_model(arch, "cuda")
+    ts = TierScapeRunConfig(enabled=True, policy="analytical", alpha=0.1,
+                            window_steps=window_steps)
+    eng = TieredEngine(model, params, ts=ts, device="cuda", **SMOKE_GEOM)
+    rng = np.random.default_rng(1)
+    for n in (40, 27):
+        eng.submit(rng.integers(1, model.cfg.vocab_size, n), max_new_tokens=24)
+    eng._fill_slots()
+    return eng
+
+
+def _same_step(got, want, what):
+    import dataclasses
+
+    from repro_torch.runtime.serve import TieredKVState
+
+    (lg, tg, eg, hg), (lw, tw, ew, hw) = got, want
+    assert torch.equal(lg, lw), what
+    for k in hw:
+        assert torch.equal(hg[k], hw[k]), (what, k)
+    for f in dataclasses.fields(TieredKVState):
+        assert torch.equal(getattr(tg, f.name), getattr(tw, f.name)), (what, f.name)
+    for a, b in zip(eg or (), ew or ()):
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_replay_matches_the_eager_kernel_step(gen, arch):
+    """Every engine step (captured once, then replayed over page-outs and
+    window-boundary migrations) byte-equal to the eager kernel step on the
+    same inputs; outputs never alias the graph's static buffers."""
+    from repro_torch.runtime import serve
+
+    eng = _graph_engine(arch)
+    graphed = eng._step_fn
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device="cuda")
+    seen = []
+
+    def checked(params, token, tkv, extra):
+        got = graphed(params, token, tkv, extra)
+        want = eager(params, token, tkv, extra)
+        _same_step(got, want, f"{arch} step {len(seen)}")
+        g = graphed.graphs["fused"]
+        static = {t.data_ptr() for t in g.produced(g.out)}
+        assert not static & {got[0].data_ptr(), got[1].recent_k.data_ptr()}
+        seen.append(1)
+        return got
+
+    eng._step_fn = checked
+    for _ in range(14):
+        eng._fill_slots()
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.stats.migrations > 0 and eng.stats.windows >= 2
+    assert graphed.captures == {"fused": 1} and graphed.replays == len(seen) - 1 == 13
+
+
+def test_graph_recaptures_on_route_change_and_moved_buffer(gen):
+    """A route change captures the other route once; a class buffer that
+    moved is captured again, never replayed at its old address; each
+    result equals the eager kernel step's on the same route."""
+    import dataclasses
+
+    from repro_torch.runtime import serve
+    from repro_torch.runtime.graph import route
+
+    eng = _graph_engine("qwen1_5_4b")
+    graphed = eng._step_fn
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device="cuda")
+
+    def step_and_check():
+        tok = torch.ones((eng.bs, 1), dtype=torch.int64, device="cuda")
+        st = eng.cache.state
+        _same_step(graphed(eng.params, tok, st, None), eager(eng.params, tok, st, None), route())
+
+    for _ in range(2):
+        step_and_check()
+    try:
+        ops.use_fused(False)
+        for _ in range(2):
+            step_and_check()
+    finally:
+        ops.use_fused(True)
+    step_and_check()
+    assert graphed.captures == {"fused": 1, "per_pool": 1} and graphed.replays == 3
+    st = eng.cache.state
+    eng.cache.state = dataclasses.replace(st, c8_k=st.c8_k.clone(), host_summary=st.host_summary
+                                          .clone())
+    del st
+    step_and_check()
+    step_and_check()
+    assert graphed.captures == {"fused": 2, "per_pool": 1} and graphed.replays == 4
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_graph_replay_counts_launches_and_skips_host_checks(gen, fused, monkeypatch):
+    """A capture counts no launch; each replay counts the launches its graph
+    holds (one fused launch a layer, or one per-pool launch per pool and
+    layer), as the cache bills them; the class-bounds check runs on eager
+    steps only, never in a replay; the cluster size stays as captured."""
+    eng = _graph_engine("qwen1_5_4b")
+    checks = []
+    real = ops._check_class_bounds
+    monkeypatch.setattr(ops, "_check_class_bounds", lambda *a: checks.append(1) or real(*a))
+    name = "fused_tiered_attention" if fused else "paged_quant_attention"
+    per_step = eng.la * (1 if fused else 2)
+    try:
+        ops.use_fused(fused)
+        build.reset_launch_counts()
+        eng.step()  # the warm-up step runs eagerly and returns; then the capture
+        torch.cuda.synchronize()
+        assert build.launch_counts()[name] == per_step
+        assert len(checks) == (eng.la if fused else 0)
+        checks.clear()
+        cluster = pa.LAST_CLUSTER[name]
+        pa.LAST_CLUSTER[name] = 0
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(6):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        ops.use_fused(True)
+    counts = build.launch_counts()
+    assert counts[name] == 7 * per_step == eng.cache.attn_launches
+    # The replays' counts come from the capture's record; the profiler sees
+    # the kernels the replays actually ran.
+    seen = sum(e.count for e in prof.key_averages() if f"{name}_kernel" in e.key)
+    assert seen == 6 * per_step
+    assert counts["fused_tiered_attention" if not fused else "paged_quant_attention"] == 0
+    assert not checks and pa.LAST_CLUSTER[name] == cluster >= 1
+    assert eng._step_fn.replays == 6
