@@ -25,6 +25,11 @@ on ticks with no demand work. At the window boundary the executor
 cohort as ``prestaged`` rows, merged back into the payload at stage time so
 the transcode input equals the no-prefetch run's) and ``discard``s the rest.
 
+Each ``tick``, ``drain`` and phase is a span of the pipeline's
+``tracing.Tracer`` (``pipeline.tick``, ``pipeline.drain``, ``pipeline.stage``,
+``pipeline.transcode``, ``pipeline.commit``), and the busy and stalled ticks
+and the prefetch hits and misses are counters there too.
+
 Ring transit: each page's four arrays are serialized as one row of bytes
 into its ring slot; demand cohorts carry a CRC32 per slot and a pristine
 host copy, checked at every unpack (a mismatch is counted and repaired from
@@ -61,6 +66,7 @@ import torch
 from repro_torch.media.devices import MediaQueue
 from repro_torch.media.faults import MAX_STAGE_RETRIES
 from repro_torch.media.ringbuf import PinnedRing
+from repro_torch.tracing import Tracer, traced
 
 # Payload keys in staging order; pack/unpack relies on this ordering.
 PAYLOAD_KEYS = ("k_pay", "k_sc", "v_pay", "v_sc")
@@ -119,8 +125,10 @@ class MigrationPipeline:
         queues: Dict[str, MediaQueue],
         step_period_s: float = 50e-6,
         serial: bool = False,
+        tracer: Optional[Tracer] = None,
     ):
         self.executor = executor
+        self.tracer = tracer or Tracer()
         self.ring = ring
         self.queues = queues
         self.step_period_s = step_period_s
@@ -132,6 +140,8 @@ class MigrationPipeline:
         self._held: Dict[int, Tuple[int, int, list, float]] = {}
         self.cohorts_done = 0
         self.pages_moved = 0
+        # Ticks with demand work queued, and those of them in which no phase
+        # progressed (ring-credit waits, fault backoff).
         self.busy_ticks = 0
         self.stall_ticks = 0
         self.prefetch_staged = 0  # pages that reached the held store
@@ -142,9 +152,6 @@ class MigrationPipeline:
         # moved or was freed mid-window): staged = hits + misses + these.
         self.prefetch_invalidated = 0
         self.prefetch_bytes = 0  # speculative source-read bytes (billed)
-        self.prefetch_read_s = 0.0  # speculative source-read service time
-        self.prefetch_bytes_by_device: Dict[str, int] = {}
-        self.prefetch_read_s_by_device: Dict[str, float] = {}
         # Speculative busy time per device, billed on the queues; a claimed
         # page's share is handed back out so the contention feedback that
         # shapes placement sees what a prefetch-free run would.
@@ -196,6 +203,7 @@ class MigrationPipeline:
             self.drain()
         return n
 
+    @traced("pipeline.tick")
     def tick(self) -> bool:
         """Advance one decode step's worth of migration work (demand first,
         speculation only when no demand work exists). Returns True if any
@@ -207,6 +215,7 @@ class MigrationPipeline:
                 return self._tick_spec(now)
             return False
         self.busy_ticks += 1
+        self.tracer.count("pipeline.busy_ticks")
         head = self._queue[0]
         progressed = False
         if head.phase == "transcoded":
@@ -234,8 +243,10 @@ class MigrationPipeline:
                 progressed = self._stage(nxt, now) or progressed
         if not progressed:
             self.stall_ticks += 1
+            self.tracer.count("pipeline.stall_ticks")
         return progressed
 
+    @traced("pipeline.drain")
     def drain(self) -> int:
         """Run the demand queue to completion; returns pages committed."""
         budget = 24 * len(self._queue) + 64
@@ -257,6 +268,7 @@ class MigrationPipeline:
             or self.executor.device_of(c.dst) != local
         )
 
+    @traced("pipeline.stage")
     def _stage(self, c: _Cohort, now: float) -> bool:
         if c.next_retry_tick > self._step:
             return False  # deterministic backoff after a faulted attempt
@@ -352,6 +364,7 @@ class MigrationPipeline:
         c.next_retry_tick = self._step + (1 << c.retries)
         return False
 
+    @traced("pipeline.transcode")
     def _transcode(self, c: _Cohort) -> None:
         payload = self._unpack(c) if c.ring_slots is not None else c.payload
         payload = self.executor.transcode_cohort(payload, c.src, c.dst)
@@ -361,6 +374,7 @@ class MigrationPipeline:
             c.payload = payload
         c.phase = "transcoded"
 
+    @traced("pipeline.commit")
     def _commit(self, c: _Cohort, now: float) -> None:
         payload = self._unpack(c) if c.ring_slots is not None else c.payload
         marker = "class_rows" in payload
@@ -419,16 +433,9 @@ class MigrationPipeline:
             nb = self.executor.page_stored_bytes(c.src) * int(c.rids.size)
             dev.submit(nb, now=now, write=False, ops=int(c.rids.size))
             svc = dev.device.batch_service_time_s(nb, ops=int(c.rids.size))
-            self.prefetch_read_s += svc
             self.prefetch_bytes += nb
             self.prefetch_busy_by_device[dev_name] = (
                 self.prefetch_busy_by_device.get(dev_name, 0.0) + svc
-            )
-            self.prefetch_bytes_by_device[dev_name] = (
-                self.prefetch_bytes_by_device.get(dev_name, 0) + nb
-            )
-            self.prefetch_read_s_by_device[dev_name] = (
-                self.prefetch_read_s_by_device.get(dev_name, 0.0) + svc
             )
             c.ring_slots = slots
             c.meta = self._pack(payload, slots)
@@ -475,6 +482,8 @@ class MigrationPipeline:
                 self.prefetch_busy_by_device.get(dev_name, 0.0) - svc_page
             )
             self.prefetch_hits += 1
+        if out:
+            self.tracer.count("prefetch.hits", len(out))
         return out
 
     def discard_speculative(self, rids=None, cancelled: bool = False) -> int:
@@ -497,6 +506,8 @@ class MigrationPipeline:
             self.prefetch_invalidated += n
         else:
             self.prefetch_misses += n
+            if n:
+                self.tracer.count("prefetch.misses", n)
         # Invalidation also reaches queued speculative cohorts, so a recycled
         # rid can never claim a stale shadow copy.
         if rids is not None and self._spec:

@@ -6,9 +6,12 @@ compress into the warm tier) -> decode steps (tiered attention, telemetry,
 one migration-pipeline tick or speculative prefetch tick) -> window boundary
 (TierScape placement; the plan's cohorts go to the async media pipeline by
 default, or run to completion with ``async_migration=False``) -> completion
-frees pages. ``faults``/``fault_plan`` arm deterministic media fault
-injection and ``host_media_device`` rebinds the host tiers (on ``cxl_hw``
-the HOST8 pages read back through the ``cxl_decode_pages`` kernel). On the
+frees pages. Each phase is a span of the engine's ``tracing.Tracer``
+(``engine.step``, ``engine.decode``, ``engine.window``, ...), keyed by
+engine step; ``EngineStats``' clocks are sums of those spans.
+``faults``/``fault_plan`` arm deterministic media fault injection and
+``host_media_device`` rebinds the host tiers (on ``cxl_hw`` the HOST8 pages
+read back through the ``cxl_decode_pages`` kernel). On the
 GPU every decode step runs the fused CUDA attention kernel in every
 attention layer (or, under ``ops.use_fused(False)``, one per-pool kernel per
 pool), the whole step captured once as a CUDA graph and replayed per token
@@ -36,12 +39,12 @@ Token accounting (``token_capacity``, ``outstanding_tokens``,
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import TierScapeRunConfig
 from repro_torch.core.manager import ManagerConfig
 from repro_torch.device import resolve_device
@@ -76,8 +79,27 @@ class PreemptedRequest:
     ssm_state: Optional[torch.Tensor] = None  # [L_ssm, H, P, N] f32, host
 
 
+# The spans, as (parent, name), that each of ``EngineStats``' clocks sums:
+# decode steps (kernels plus the telemetry and argmax copies to the host, so
+# device work is complete), prefills, window boundaries, and the daemon:
+# telemetry folds, pipeline or prefetch ticks, boundaries and the drain in
+# ``finish``.
+_STEP = "engine.step"
+CLOCKS = {
+    "decode_s": ((_STEP, "engine.decode"),),
+    "prefill_s": ((None, "engine.prefill"),),
+    "window_s": ((_STEP, "engine.window"),),
+    "daemon_s": ((_STEP, "cache.fold_telemetry"), (_STEP, "pipeline.tick"),
+                 (_STEP, "cache.prefetch_tick"), (_STEP, "engine.window"),
+                 (None, "engine.finish")),
+}
+
+
 @dataclasses.dataclass
 class EngineStats:
+    # The engine's cache: the prefetch and launch counts below read it and
+    # its pipeline, the clocks its tracer.
+    cache: TieredKVCache = dataclasses.field(repr=False, compare=False)
     steps: int = 0
     windows: int = 0
     migrations: int = 0
@@ -92,24 +114,47 @@ class EngineStats:
     resumed_pages: int = 0
     re_prefill_tokens: int = 0
     # Decode steps retired while a migration cohort was in flight (async
-    # pipeline), and speculative prefetch: pages staged / claimed / missed.
+    # pipeline).
     overlapped_steps: int = 0
-    prefetch_staged: int = 0
-    prefetch_hits: int = 0
-    prefetch_misses: int = 0
-    # Decode-attention launches billed by the cache's dispatch proxy
-    # (fused: n_layers per step; per-pool: n_layers * n_pools).
-    attn_launches: int = 0
-    # Wall seconds (host clock): decode steps (kernels plus the telemetry
-    # copy to the host, so device work is complete), telemetry folds plus
-    # window boundaries, prefills, and window boundaries alone.
-    decode_s: float = 0.0
-    daemon_s: float = 0.0
-    prefill_s: float = 0.0
-    window_s: float = 0.0
     tco_savings_pct: float = 0.0
     completed_by_tenant: Dict[int, int] = dataclasses.field(default_factory=dict)
     tco_savings_by_tenant: Dict[int, float] = dataclasses.field(default_factory=dict)
+
+    # Speculative prefetch: pages staged / claimed / missed.
+    @property
+    def prefetch_staged(self) -> int:
+        return self.cache.pipeline.prefetch_staged
+
+    @property
+    def prefetch_hits(self) -> int:
+        return self.cache.pipeline.prefetch_hits
+
+    @property
+    def prefetch_misses(self) -> int:
+        return self.cache.pipeline.prefetch_misses
+
+    @property
+    def attn_launches(self) -> int:
+        """Decode-attention launches billed by the cache's dispatch proxy
+        (fused: n_layers per step; per-pool: n_layers * n_pools)."""
+        return self.cache.attn_launches
+
+    # Wall seconds on the host clock (``CLOCKS``).
+    @property
+    def decode_s(self) -> float:
+        return self.cache.tracer.seconds(CLOCKS["decode_s"])
+
+    @property
+    def daemon_s(self) -> float:
+        return self.cache.tracer.seconds(CLOCKS["daemon_s"])
+
+    @property
+    def prefill_s(self) -> float:
+        return self.cache.tracer.seconds(CLOCKS["prefill_s"])
+
+    @property
+    def window_s(self) -> float:
+        return self.cache.tracer.seconds(CLOCKS["window_s"])
 
 
 class TieredEngine:
@@ -152,6 +197,8 @@ class TieredEngine:
             hotness_threshold=ts.hotness_threshold,
             window_steps=ts.window_steps,
         )
+        self.tracer = tracing.Tracer()
+        tracing.set_current(self.tracer)
         fault_plan = ts.fault_plan
         if fault_plan is None and ts.faults:
             # Chaos soak: the default transient + corruption plan on the host
@@ -173,6 +220,7 @@ class TieredEngine:
             host_media_device=ts.host_media_device,
             fault_plan=fault_plan,
             device=self.device,
+            tracer=self.tracer,
         )
         # The fused CUDA kernel on the GPU; the plain oracle on the CPU (the
         # JAX engine's own choice, ``use_kernels=False``). On the GPU the
@@ -193,7 +241,7 @@ class TieredEngine:
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.slot_len = np.zeros(batch_slots, np.int64)
         self.queue: List[Request] = []
-        self.stats = EngineStats()
+        self.stats = EngineStats(self.cache)
         self._steps_in_window = 0
         self._next_rid = 0
 
@@ -266,31 +314,29 @@ class TieredEngine:
     def step(self) -> None:
         """One externally-drivable engine step: decode every active slot,
         then advance the profile window."""
-        self._decode_step()
-        self._steps_in_window += 1
-        if self._steps_in_window >= self.ts.window_steps:
-            self._end_window()
+        self.tracer.step = self.stats.steps
+        with self.tracer.span(_STEP):
+            self._decode_step()
+            self._steps_in_window += 1
+            if self._steps_in_window >= self.ts.window_steps:
+                self._end_window()
 
     def finish(self) -> EngineStats:
         """Drain in-flight cohorts and finalize the stats snapshot
         (idempotent)."""
-        t0 = time.perf_counter()
-        self.cache.drain_migrations()
-        self.stats.daemon_s += time.perf_counter() - t0
+        self.tracer.step = self.stats.steps
+        with self.tracer.span("engine.finish"):
+            self.cache.drain_migrations()
         self.stats.tco_savings_pct = max(
             self.stats.tco_savings_pct, self.cache.tco_savings_pct()
         )
-        pipe = self.cache.pipeline
-        self.stats.prefetch_staged = pipe.prefetch_staged
-        self.stats.prefetch_hits = pipe.prefetch_hits
-        self.stats.prefetch_misses = pipe.prefetch_misses
-        self.stats.attn_launches = self.cache.attn_launches
         return self.stats
 
     def start_request(self, slot: int, req: Request) -> None:
         """Place ``req`` into a specific FREE slot and prefill it."""
         if self.slots[slot] is not None:
             raise ValueError(f"start_request: slot {slot} is occupied")
+        self.tracer.step = self.stats.steps
         self.cache.set_slot_tenant(slot, req.tenant)
         self._prefill(slot, req)
         self.slots[slot] = req
@@ -343,13 +389,13 @@ class TieredEngine:
                 req = self.queue.pop(0)
                 self.start_request(i, req)
 
+    @tracing.traced("engine.prefill")
     def _prefill(self, slot: int, req: Request):
         """Dense prefill, then page the prompt KV into the warm tier
         (batched: one quant launch for all layers x pages). The KV stays on
         the device in the cache's own type (the reference round-trips it
         through host numpy in f32; the quantization upcasts exactly, so the
         codes and scales are the same)."""
-        t0 = time.perf_counter()
         s = len(req.prompt)
         if req.out_tokens:
             self.stats.re_prefill_tokens += s
@@ -384,24 +430,24 @@ class TieredEngine:
             conv, sst = self.ssm_state
             conv[:, slot] = state.conv_state[:, 0].to(conv.dtype)
             sst[:, slot] = state.ssm_state[:, 0]
-        self.stats.prefill_s += time.perf_counter() - t0
 
     def _decode_step(self):
-        t0 = time.perf_counter()
-        tokens = np.zeros((self.bs, 1), np.int64)
-        for i, req in enumerate(self.slots):
-            if req is not None and req.out_tokens:
-                tokens[i, 0] = req.out_tokens[-1]
-        logits, tkv, self.ssm_state, telemetry = self._step_fn(
-            self.params, torch.as_tensor(tokens, device=self.device), self.cache.state,
-            self.ssm_state,
-        )
-        self.cache.state = tkv
-        telemetry = {k: v.cpu().numpy() for k, v in telemetry.items()}
-        next_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
-        self.stats.decode_s += time.perf_counter() - t0
+        tr = self.tracer
+        with tr.span("engine.decode"):
+            tokens = np.zeros((self.bs, 1), np.int64)
+            for i, req in enumerate(self.slots):
+                if req is not None and req.out_tokens:
+                    tokens[i, 0] = req.out_tokens[-1]
+            logits, tkv, self.ssm_state, telemetry = self._step_fn(
+                self.params, torch.as_tensor(tokens, device=self.device), self.cache.state,
+                self.ssm_state,
+            )
+            self.cache.state = tkv
+            # The host waits here for the step's device work.
+            with tr.span("engine.decode.wait"):
+                telemetry = {k: v.cpu().numpy() for k, v in telemetry.items()}
+                next_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
 
-        t1 = time.perf_counter()
         self.cache.record_telemetry(telemetry)
         # Advance in-flight migration cohorts by one phase (decode retired a
         # step while migration ran); on an idle media path, spend the step on
@@ -411,7 +457,6 @@ class TieredEngine:
             self.stats.overlapped_steps += 1
         else:
             self.cache.prefetch_tick()
-        self.stats.daemon_s += time.perf_counter() - t1
 
         for i, req in enumerate(self.slots):
             if req is None:
@@ -428,6 +473,7 @@ class TieredEngine:
         self.stats.steps += 1
         self._maybe_page_out_recent()
 
+    @tracing.traced("engine.page_out")
     def _maybe_page_out_recent(self):
         """When a slot's recent window fills, compress its oldest full
         pages. Per slot: each slot pages out at its own fill level and its
@@ -475,6 +521,7 @@ class TieredEngine:
                                                        device=self.device),
         )
 
+    @tracing.traced("engine.release")
     def _release_slot(self, slot: int):
         """Request finished: free its pages everywhere (batched)."""
         self.cache.release_slot_pages(slot)
@@ -485,11 +532,8 @@ class TieredEngine:
         st.total_len[slot] = 0
 
     def _end_window(self):
-        t0 = time.perf_counter()
-        plan, moved = self.cache.end_window()
-        dt = time.perf_counter() - t0
-        self.stats.daemon_s += dt
-        self.stats.window_s += dt
+        with self.tracer.span("engine.window"):
+            plan, moved = self.cache.end_window()
         self.stats.migrations += moved
         self.stats.windows += 1
         self._steps_in_window = 0

@@ -69,6 +69,7 @@ from repro_torch.media.faults import FaultyMediaDevice
 from repro_torch.media.pipeline import PAYLOAD_KEYS, MigrationPipeline
 from repro_torch.media.ringbuf import PinnedRing
 from repro_torch.runtime.serve import CLASS_FIELDS, TieredKVState, init_tiered_kv_state
+from repro_torch.tracing import Tracer, traced
 
 # Placement indices (0 stays "uncompressed DRAM" for cost-model parity with
 # the paper; KV pages never occupy it — the recent window does).
@@ -228,6 +229,7 @@ class TieredKVCache:
         host_media_device: str = "",
         fault_plan=None,
         device="cuda",
+        tracer: Optional[Tracer] = None,
     ):
         """``tenant_quota`` maps pool name ("warm"/"cold") -> {tenant id ->
         max concurrently held slots}; quota exhaustion spills that tenant's
@@ -240,8 +242,11 @@ class TieredKVCache:
         share one codec-class buffer. ``host_media_device`` rebinds the host
         tiers onto another catalog device (e.g. ``"cxl_hw"``).
         ``fault_plan`` (a ``media.faults.FaultPlan``) wraps every media
-        queue's device in a ``FaultyMediaDevice`` on one window clock."""
+        queue's device in a ``FaultyMediaDevice`` on one window clock.
+        ``tracer`` takes the cache's and its pipeline's spans and counters
+        (the engine's; a fresh one by default)."""
         self.device = resolve_device(device)
+        self.tracer = tracer or Tracer()
         self.cfg = cfg
         self.la = n_attn_layers
         self.bs = batch_slots
@@ -309,14 +314,12 @@ class TieredKVCache:
         self._host_slot = np.full(self.n_regions, -1, np.int64)
         self.slot_tenant = np.zeros(self.bs, np.int64)
         self._rid_slot = (np.arange(self.n_regions) // self.max_pages) % self.bs
-        self.quality_skipped_mass = 0.0  # cumulative mass of host-excluded pages
         # Compute-kernel dispatches of the ingestion/migration path
         # (quant / dequant / transcode — the daemon-tax proxy).
         self.kernel_dispatches = 0
         # Decode-side attention launches billed per step by
         # ``kops.decode_launches_per_step`` (1 per layer on the fused path).
         self.attn_launches = 0
-        self.decode_steps_recorded = 0
 
         # --- backing-media subsystem: one MediaQueue per distinct device, a
         # staging ring sized for the fattest page (int8 payload + f32
@@ -337,7 +340,6 @@ class TieredKVCache:
         self._fault_window = 0
         self._down_devices: set = set()
         self.fault_deferred_pages = 0  # plan entries deferred off down devices
-        self.fault_spill_redirects = 0  # commit spills rerouted off down devices
         self._spill_depth = 0  # nested commit-spill depth (redirect guard)
         self._fault_counter_snapshot = (0, 0, 0)
         if fault_plan is not None:
@@ -346,7 +348,7 @@ class TieredKVCache:
         self.async_migration = async_migration
         self.pipeline = MigrationPipeline(
             self, self.staging_ring, self.media_queues,
-            step_period_s=media_step_s, serial=not async_migration,
+            step_period_s=media_step_s, serial=not async_migration, tracer=self.tracer,
         )
         self._pending_reconcile: List[np.ndarray] = []
         self._media_busy_snapshot: Dict[str, float] = {}
@@ -1052,7 +1054,6 @@ class TieredKVCache:
             and self._dev_names[HOST4] in self._down_devices
             and self._alloc["warm"].used < self._alloc["warm"].capacity
         ):
-            self.fault_spill_redirects += 1
             return WARM
         return spill
 
@@ -1086,6 +1087,7 @@ class TieredKVCache:
         return 0
 
     # ------------------------------------------------ speculative prefetch
+    @traced("cache.prefetch_tick")
     def prefetch_tick(self) -> bool:
         """One decode step's speculative work: emit this window's warming
         cohort (at most one non-empty emission per window) and advance
@@ -1396,6 +1398,7 @@ class TieredKVCache:
         return int(rids.size)
 
     # ------------------------------------------------------------ telemetry
+    @traced("cache.fold_telemetry")
     def record_telemetry(self, telemetry: Dict[str, np.ndarray]) -> None:
         """Fold per-step page masses ([L, B, MP] normalized, per pool) into
         region hotness counts through the tables' (layer, pool_slot) -> rid
@@ -1406,11 +1409,8 @@ class TieredKVCache:
         self.manager.record_access_counts(self._fold_telemetry(telemetry) * 1000.0)
         host_mass = telemetry.get("host")
         if host_mass is not None:
-            folded = self._fold_host_mass(host_mass)
-            self.quality_skipped_mass += float(folded.sum())
-            self.manager.record_host_mass(folded * 1000.0)
+            self.manager.record_host_mass(self._fold_host_mass(host_mass) * 1000.0)
         self.attn_launches += self.la * kops.decode_launches_per_step(n_pools=len(_POOL))
-        self.decode_steps_recorded += 1
 
     def _fold_table_mass(self, counts, mass, table, nvec, cap, live, slot_of) -> None:
         """Accumulate per-table-entry ``mass`` [L, B, M] onto region ids.
@@ -1534,16 +1534,27 @@ class TieredKVCache:
         pipeline and the desired/physical reconcile happens when the batch
         drains. A previous window's stragglers drain first, speculative
         cohorts finish into the held store, and moves touching a down device
-        are deferred before the mode split."""
-        if self.pipeline.busy:
-            self.pipeline.drain()
-        if self.prefetch_enabled:
-            self.pipeline.finish_speculative()
-        self._observe_adaptive_media()
-        if self.fault_plan is not None:
-            self._advance_fault_window()
-        plan = self.manager.end_window()
-        self._prefetch_window_emitted = False
+        are deferred before the mode split. Three spans: ``cache.drain``,
+        ``cache.policy`` and ``cache.submit``."""
+        tr = self.tracer
+        with tr.span("cache.drain"):
+            if self.pipeline.busy:
+                self.pipeline.drain()
+            if self.prefetch_enabled:
+                self.pipeline.finish_speculative()
+        with tr.span("cache.policy"):
+            self._observe_adaptive_media()
+            if self.fault_plan is not None:
+                self._advance_fault_window()
+            plan = self.manager.end_window()
+            self._prefetch_window_emitted = False
+        return self._submit_plan(plan)
+
+    @traced("cache.submit")
+    def _submit_plan(self, plan):
+        """The boundary's plan onto the executor: cohorts, the claim or
+        discard of prefetched pages and the submission (async), or the
+        batched migration (serial)."""
         if plan.regions.size == 0:
             if self.prefetch_enabled:
                 self.pipeline.discard_speculative()  # nothing to claim: all misses
@@ -1584,16 +1595,6 @@ class TieredKVCache:
         return plan, moved
 
     # ------------------------------------------------------------- metrics
-    def hbm_bytes(self) -> int:
-        st = self.state
-        tot = 0
-        for name in ("c8_k", "c8_k_scales", "c8_v", "c8_v_scales",
-                     "c4_k", "c4_k_scales", "c4_v", "c4_v_scales",
-                     "recent_k", "recent_v"):
-            a = getattr(st, name)
-            tot += a.numel() * a.element_size()
-        return tot
-
     def tco_usd(self, tenant: Optional[int] = None) -> float:
         """Memory TCO of *existing* pages under the current placement,
         optionally restricted to one tenant's pages."""
