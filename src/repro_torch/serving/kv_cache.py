@@ -17,9 +17,11 @@ not read in-step but appear as sentinel rows (a per-page key centroid in
 ``state.host_summary``) whose would-have-touched mass is tracked separately.
 
 All placement state is host-side numpy (daemon side); host-tier payloads are
-numpy too. Device state is ``TieredKVState`` tensors: page tables are edited
-on the host and committed to the device once per batch, and the class
-buffers are written in place (the reference's functional ``.at[].set``).
+numpy too. Device state is ``TieredKVState`` tensors: the page tables' source
+is host arrays that hold each entry's region id beside it, edited in place
+and uploaded to the device once per batch (the device copies are never read
+back; the telemetry fold reads the host side), and the class buffers are
+written in place (the reference's functional ``.at[].set``).
 ``manager.placement`` is the policy's desired placement, ``self.physical``
 where each page's payload actually lives. Two executors reconcile them
 cohort by cohort, with one ``transcode_pages`` launch per transcoding
@@ -86,6 +88,10 @@ _DEVICE_TIER_IDS = {
 # pipeline. Every placement mask is a positive-level comparison, so in-flight
 # pages drop out of telemetry folds, eviction scans and capacity pre-passes.
 INFLIGHT = -1
+# The page table that holds a page at each placement level (1 warm, 2 cold,
+# 3 host sentinels, 0 none), indexed by level: INFLIGHT (-1) reads the last 0.
+_TABLE_OF_LEVEL = np.array([0, 1, 2, 3, 3, 0], np.int8)
+_TABLE_CODE = {"warm": 1, "cold": 2, "host": 3}
 
 
 def kv_tierset(
@@ -150,41 +156,72 @@ class ParkedSlot:
 
 
 class _TableEditor:
-    """Batched host-side edits of the device page tables: all mutations of
-    one migrate/append batch happen on numpy copies and ``commit`` writes
-    each table back to the device once. Covers the host sentinel table too.
-    ``classes`` names each device pool's codec-class buffer ("c8"/"c4")."""
+    """The page tables' source of truth: host arrays of the warm, cold and
+    host sentinel tables and counts, with each entry's region id (rid)
+    beside it in a same-shaped array, -1 at and past each row's count (so a
+    rid marks an entry below the count; the table itself keeps stale rows
+    there). The cache is the tables' only writer: every migrate/append
+    batch edits these arrays in place and ``commit`` uploads each table to
+    the device once. The device copies are write-only; the telemetry fold
+    reads the host tables and rids. ``classes`` names each device pool's
+    codec-class buffer ("c8"/"c4"). A commit whose row check fails leaves
+    its edits in the host arrays: the cache is not usable after it."""
 
     _POOLS = ("warm", "cold", "host")
 
-    def __init__(self, state: TieredKVState, classes: Dict[str, str]):
+    def __init__(self, state: TieredKVState, classes: Dict[str, str], batch_slots: int,
+                 max_pages: int, tracer: Tracer):
         self.classes = classes
-        self.tables = {p: _np(getattr(state, f"{p}_table")).copy() for p in self._POOLS}
-        self.counts = {p: _np(getattr(state, f"{p}_n")).copy() for p in self._POOLS}
+        self._bs, self._mp = batch_slots, max_pages
+        self.tracer = tracer
+        shape = {p: tuple(getattr(state, f"{p}_table").shape) for p in self._POOLS}
+        self.tables = {p: np.zeros(shape[p], np.int32) for p in self._POOLS}
+        self.counts = {p: np.zeros(shape[p][:2], np.int32) for p in self._POOLS}
+        self.rids = {p: np.full(shape[p], -1, np.int64) for p in self._POOLS}
 
-    def remove(self, pool: str, layers, slots, pool_slots) -> None:
-        t, c = self.tables[pool], self.counts[pool]
+    def _rows(self, rids):
+        rids = np.asarray(rids, np.int64)
+        return rids // (self._bs * self._mp), (rids // self._mp) % self._bs
+
+    def remove(self, pool: str, rids, pool_slots) -> None:
+        """Drop each rid's entry (found by its pool row) from its (layer,
+        slot) row: the row's last entry takes its place."""
+        t, c, rr = self.tables[pool], self.counts[pool], self.rids[pool]
+        layers, slots = self._rows(rids)
         for la, sl, ps in zip(layers, slots, pool_slots):
             n = int(c[la, sl])
-            row = t[la, sl]
+            row, rrow = t[la, sl], rr[la, sl]
             idx = int(np.where(row[:n] == ps)[0][0])
             row[idx] = row[n - 1]
+            rrow[idx] = rrow[n - 1]
             row[n - 1] = 0
+            rrow[n - 1] = -1
             c[la, sl] = n - 1
 
-    def insert(self, pool: str, layers, slots, pool_slots) -> None:
-        t, c = self.tables[pool], self.counts[pool]
-        for la, sl, ps in zip(layers, slots, pool_slots):
+    def insert(self, pool: str, rids, pool_slots) -> None:
+        """Append each rid's pool row to the end of its (layer, slot) row."""
+        t, c, rr = self.tables[pool], self.counts[pool], self.rids[pool]
+        layers, slots = self._rows(rids)
+        for r, la, sl, ps in zip(np.asarray(rids, np.int64), layers, slots, pool_slots):
             n = int(c[la, sl])
             t[la, sl, n] = ps
+            rr[la, sl, n] = r
             c[la, sl] = n + 1
+
+    def clear_slot(self, state: TieredKVState, slot: int, pools=_POOLS) -> None:
+        """Zero one batch slot's counts in ``pools``, on the host and in place
+        on the device (entries past a count are stale and never read)."""
+        for p in pools:
+            self.counts[p][:, slot] = 0
+            self.rids[p][:, slot] = -1
+            getattr(state, f"{p}_n")[:, slot] = 0
 
     def check_rows(self, state: TieredKVState) -> None:
         """Every valid entry of the edited tables must address a row of its
         class buffer (the host table: of the host summary); the attention
         kernels trust the tables. This is the decode step's class-bounds
         check (``kops._check_class_bounds``), made once per edit on the
-        host copies instead of once per layer and step on the device."""
+        host tables instead of once per layer and step on the device."""
         for p in self._POOLS:
             if p == "host":
                 cls, rows = "host summary", state.host_summary.shape[1]
@@ -197,12 +234,16 @@ class _TableEditor:
                 raise kops.class_rows_error(cls, int(valid.min()), int(valid.max()), int(rows))
 
     def commit(self, state: TieredKVState) -> TieredKVState:
+        """Check the rows, then upload every table and count to the device
+        (copies: the device tensors never alias the host arrays). Counted as
+        ``cache.table_uploads``."""
         self.check_rows(state)
         dev = state.warm_table.device
         kw = {}
         for p in self._POOLS:
-            kw[f"{p}_table"] = torch.as_tensor(self.tables[p], device=dev)
-            kw[f"{p}_n"] = torch.as_tensor(self.counts[p], device=dev)
+            kw[f"{p}_table"] = torch.tensor(self.tables[p], device=dev)
+            kw[f"{p}_n"] = torch.tensor(self.counts[p], device=dev)
+        self.tracer.count("cache.table_uploads")
         return dataclasses.replace(state, **kw)
 
 
@@ -286,6 +327,8 @@ class TieredKVCache:
             cold_bits=cb,
             device=self.device,
         )
+        # The page tables' source: host arrays, each entry beside its rid.
+        self._tables = _TableEditor(self.state, self._cls, self.bs, self.max_pages, self.tracer)
         # Host tier pools: region id -> (k_pay, k_sc, v_pay, v_sc) numpy.
         self.host_pages: Dict[int, Tuple[np.ndarray, ...]] = {}
 
@@ -416,8 +459,8 @@ class TieredKVCache:
     def _free_slot(self, pool: str, pool_slot: int) -> None:
         self._alloc[pool].free(int(pool_slot))
 
-    def _editor(self) -> _TableEditor:
-        return _TableEditor(self.state, self._cls)
+    def _commit_tables(self) -> None:
+        self.state = self._tables.commit(self.state)
 
     # ------------------------------------------------ class-major addressing
     def _same_class(self, src: int, dst: int) -> bool:
@@ -466,10 +509,8 @@ class TieredKVCache:
     # Every page on a host tier carries a sentinel: its key centroid (mean
     # over the page's T tokens of the dequantized stored K payload) in
     # ``state.host_summary`` plus a ``host_table`` entry.
-    def _host_sentinel_insert(
-        self, rids, layers, slots, k_pay, k_sc, level: int,
-        editor: Optional[_TableEditor] = None,
-    ) -> None:
+    def _host_sentinel_insert(self, rids, layers, k_pay, k_sc, level: int,
+                              commit: bool = True) -> None:
         rids = np.asarray(rids, np.int64)
         if rids.size == 0:
             return
@@ -488,25 +529,19 @@ class TieredKVCache:
         self.state.host_summary[self._ix(layers), self._ix(hs)] = torch.as_tensor(
             summ, device=self.device
         )
-        own = editor is None
-        editor = editor or self._editor()
-        editor.insert("host", layers, slots, hs)
-        if own:
-            self.state = editor.commit(self.state)
         self._host_slot[rids] = hs
+        self._tables.insert("host", rids, hs)
+        if commit:
+            self._commit_tables()
 
-    def _host_sentinel_remove(
-        self, rids, layers, slots, editor: Optional[_TableEditor] = None
-    ) -> None:
+    def _host_sentinel_remove(self, rids, layers, commit: bool = True) -> None:
         rids = np.asarray(rids, np.int64)
         if rids.size == 0:
             return
         hs = self._host_slot[rids]
-        own = editor is None
-        editor = editor or self._editor()
-        editor.remove("host", layers, slots, hs)
-        if own:
-            self.state = editor.commit(self.state)
+        self._tables.remove("host", rids, hs)
+        if commit:
+            self._commit_tables()
         for la, x in zip(layers, hs):
             self._host_alloc[int(la)].free(int(x))
         self._host_slot[rids] = -1
@@ -560,7 +595,6 @@ class TieredKVCache:
             cold_fit = self._claim_fits("cold", rids[rest])
             dst_of[rest[cold_fit]] = COLD
 
-        editor = self._editor()
         for dst in (WARM, COLD, HOST4):
             sel = np.where(dst_of == dst)[0]
             if sel.size == 0:
@@ -572,8 +606,7 @@ class TieredKVCache:
             self.kernel_dispatches += 1
             if dst in _DEVICE:
                 self._scatter_device(
-                    dst, rids[sel], layers[sel], slots[sel],
-                    pay[:p], sc[:p], pay[p:], sc[p:], editor,
+                    dst, rids[sel], layers[sel], pay[:p], sc[:p], pay[p:], sc[p:]
                 )
             else:
                 kp, ks = _np(pay[:p]), _np(sc[:p])
@@ -582,9 +615,7 @@ class TieredKVCache:
                     self.host_pages[int(r)] = (kp[j], ks[j], vp[j], vs[j])
                 self._pool_slot[rids[sel]] = -2
                 self._set_placement(rids[sel], dst)
-                self._host_sentinel_insert(
-                    rids[sel], layers[sel], slots[sel], kp, ks, dst, editor
-                )
+                self._host_sentinel_insert(rids[sel], layers[sel], kp, ks, dst, commit=False)
             if dst == WARM:
                 kp_sz = int(pay[:p].numel())
                 sc_sz = int(sc[:p].numel())
@@ -592,7 +623,7 @@ class TieredKVCache:
                     self.manager.update_measured_ratio(
                         WARM, 2.0 * (kp_sz / p) / (kp_sz / p + 4 * sc_sz / p)
                     )
-        self.state = editor.commit(self.state)
+        self._commit_tables()
         self._page_exists[rids] = True
 
     def append_page(self, layer: int, slot: int, page: int, kpage, vpage) -> None:
@@ -614,10 +645,11 @@ class TieredKVCache:
         ps = self._alloc_slot("warm", rid)
         kp, ks, vp, vs = self._quant_page(kpage, vpage, self._bits[WARM])
         self._scatter_rows("warm", layer, ps, kp, ks, vp, vs)
-        self._table_append("warm", layer, slot, ps)
+        self._pool_slot[rid] = ps
+        self._tables.insert("warm", [rid], [ps])
+        self._commit_tables()
         self._set_placement(rid, WARM)
         self._page_exists[rid] = True
-        self._pool_slot[rid] = ps
         self.manager.update_measured_ratio(
             WARM, 2.0 * kp.numel() / (kp.numel() + 4 * ks.numel()) * 1.0
         )
@@ -778,27 +810,26 @@ class TieredKVCache:
         cohorts = self.plan_cohorts(rids, dsts)
         if not cohorts:
             return 0
-        editor = self._editor()
         moved = 0
         for crids, s, d in cohorts:
-            self._exec_cohort(crids, s, d, editor)
+            self._exec_cohort(crids, s, d)
             moved += int(crids.size)
-        self.state = editor.commit(self.state)
+        self._commit_tables()
         return moved
 
-    def _exec_cohort(self, rids: np.ndarray, src: int, dst: int, editor: _TableEditor) -> None:
+    def _exec_cohort(self, rids: np.ndarray, src: int, dst: int) -> None:
         """Move one (src, dst) cohort: gather -> (transcode | copy) ->
-        scatter. Same-class device moves only transfer row ownership and
-        re-point the page tables — zero payload bytes move."""
+        scatter, editing the host tables (the caller commits). Same-class
+        device moves only transfer row ownership and re-point the page
+        tables — zero payload bytes move."""
         p = rids.size
         layers = rids // (self.bs * self.max_pages)
-        slots = (rids // self.max_pages) % self.bs
 
         if self._same_class(src, dst):
             ps = self._pool_slot[rids]
-            editor.remove(_POOL[src], layers, slots, ps)
+            self._tables.remove(_POOL[src], rids, ps)
             self._exchange_rows(src, dst, rids, ps)
-            editor.insert(_POOL[dst], layers, slots, ps)
+            self._tables.insert(_POOL[dst], rids, ps)
             self._set_placement(rids, dst)
             return
 
@@ -808,12 +839,12 @@ class TieredKVCache:
             pool = _POOL[src]
             ps = self._pool_slot[rids]
             k_pay, k_sc, v_pay, v_sc = self._gather_rows(pool, layers, ps)
-            editor.remove(pool, layers, slots, ps)
+            self._tables.remove(pool, rids, ps)
             for x in ps:
                 self._free_slot(pool, int(x))
         else:
             self._invalidate_prefetch(rids)
-            self._host_sentinel_remove(rids, layers, slots, editor)
+            self._host_sentinel_remove(rids, layers, commit=False)
             hp = [self.host_pages.pop(int(r)) for r in rids]
             k_pay, k_sc, v_pay, v_sc = (
                 torch.as_tensor(np.stack([h[i] for h in hp]), device=self.device)
@@ -831,7 +862,7 @@ class TieredKVCache:
         # else: same-codec fast path — raw copy, no transcode launch.
 
         if dst in _DEVICE:
-            self._scatter_device(dst, rids, layers, slots, k_pay, k_sc, v_pay, v_sc, editor)
+            self._scatter_device(dst, rids, layers, k_pay, k_sc, v_pay, v_sc)
         else:
             kp, ks = _np(k_pay), _np(k_sc)
             vp, vs = _np(v_pay), _np(v_sc)
@@ -839,13 +870,15 @@ class TieredKVCache:
                 self.host_pages[int(r)] = (kp[i], ks[i], vp[i], vs[i])
             self._pool_slot[rids] = -2
             self._set_placement(rids, dst)
-            self._host_sentinel_insert(rids, layers, slots, kp, ks, dst, editor)
+            self._host_sentinel_insert(rids, layers, kp, ks, dst, commit=False)
 
-    def _scatter_device(self, dst, rids, layers, slots, k_pay, k_sc, v_pay, v_sc, editor):
+    def _scatter_device(self, dst, rids, layers, k_pay, k_sc, v_pay, v_sc):
+        """Claim pool rows for a cohort, write its payloads there and append
+        the rows to the host tables (the caller commits)."""
         pool = _POOL[dst]
         new_ps = np.array([self._alloc_slot(pool, int(r)) for r in rids], np.int64)
         self._scatter_rows(pool, layers, new_ps, k_pay, k_sc, v_pay, v_sc)
-        editor.insert(pool, layers, slots, new_ps)
+        self._tables.insert(pool, rids, new_ps)
         self._pool_slot[rids] = new_ps
         self._set_placement(rids, dst)
 
@@ -887,12 +920,10 @@ class TieredKVCache:
         a ``class_rows`` marker rides the pipeline instead of bytes."""
         rids = np.asarray(rids, np.int64)
         layers = rids // (self.bs * self.max_pages)
-        slots = (rids // self.max_pages) % self.bs
         if dst is not None and self._same_class(src, dst):
             ps = self._pool_slot[rids]
-            editor = self._editor()
-            editor.remove(_POOL[src], layers, slots, ps)
-            self.state = editor.commit(self.state)
+            self._tables.remove(_POOL[src], rids, ps)
+            self._commit_tables()
             # Rows stay owned by src's allocator until commit exchanges them.
             self.physical[rids] = INFLIGHT
             return {"class_rows": ps.copy()}
@@ -900,14 +931,13 @@ class TieredKVCache:
             pool = _POOL[src]
             ps = self._pool_slot[rids]
             payload = dict(zip(PAYLOAD_KEYS, self._gather_rows(pool, layers, ps)))
-            editor = self._editor()
-            editor.remove(pool, layers, slots, ps)
-            self.state = editor.commit(self.state)
+            self._tables.remove(pool, rids, ps)
+            self._commit_tables()
             for x in ps:
                 self._free_slot(pool, int(x))
         else:
             self._invalidate_prefetch(rids)
-            self._host_sentinel_remove(rids, layers, slots)
+            self._host_sentinel_remove(rids, layers)
             payload = self._host_payload([self.host_pages.pop(int(r)) for r in rids])
         self.physical[rids] = INFLIGHT
         self._pool_slot[rids] = -3
@@ -926,9 +956,7 @@ class TieredKVCache:
         if src in _DEVICE:
             raise ValueError("prefetch sources are host tiers")
         rids = np.asarray(rids, np.int64)
-        layers = rids // (self.bs * self.max_pages)
-        slots = (rids // self.max_pages) % self.bs
-        self._host_sentinel_remove(rids, layers, slots)
+        self._host_sentinel_remove(rids, rids // (self.bs * self.max_pages))
         for r in rids:
             self.host_pages.pop(int(r), None)
         self.physical[rids] = INFLIGHT
@@ -967,15 +995,12 @@ class TieredKVCache:
             fi = np.where(fits)[0]
             if fi.size:
                 frids = rids[fi]
-                layers = frids // (self.bs * self.max_pages)
-                slots = (frids // self.max_pages) % self.bs
-                editor = self._editor()
                 sel = torch.as_tensor(fi)
                 self._scatter_device(
-                    dst, frids, layers, slots,
-                    *(payload[k][sel.to(payload[k].device)] for k in PAYLOAD_KEYS), editor,
+                    dst, frids, frids // (self.bs * self.max_pages),
+                    *(payload[k][sel.to(payload[k].device)] for k in PAYLOAD_KEYS),
                 )
-                self.state = editor.commit(self.state)
+                self._commit_tables()
             sp = np.where(~fits)[0]
             if sp.size:
                 sel = torch.as_tensor(sp)
@@ -993,9 +1018,7 @@ class TieredKVCache:
             self.host_pages[int(r)] = (kp[i], ks[i], vp[i], vs[i])
         self._pool_slot[rids] = -2
         self._set_placement(rids, dst)
-        layers = rids // (self.bs * self.max_pages)
-        slots = (rids // self.max_pages) % self.bs
-        self._host_sentinel_insert(rids, layers, slots, kp, ks, dst)
+        self._host_sentinel_insert(rids, rids // (self.bs * self.max_pages), kp, ks, dst)
         return actual
 
     def _commit_class_rows(
@@ -1010,24 +1033,19 @@ class TieredKVCache:
         fi = np.where(fits)[0]
         if fi.size:
             frids, fps = rids[fi], ps[fi]
-            layers = frids // (self.bs * self.max_pages)
-            slots = (frids // self.max_pages) % self.bs
-            editor = self._editor()
             self._exchange_rows(src, dst, frids, fps)
-            editor.insert(_POOL[dst], layers, slots, fps)
-            self.state = editor.commit(self.state)
+            self._tables.insert(_POOL[dst], frids, fps)
+            self._commit_tables()
             self._set_placement(frids, dst)
         sp = np.where(~fits)[0]
         if sp.size:
             srids, sps = rids[sp], ps[sp]
             layers = srids // (self.bs * self.max_pages)
-            slots = (srids // self.max_pages) % self.bs
             spill_dst = self._spill_target(dst)
             if spill_dst == src:
                 # Spilling back into the source pool: the rows never left it.
-                editor = self._editor()
-                editor.insert(_POOL[src], layers, slots, sps)
-                self.state = editor.commit(self.state)
+                self._tables.insert(_POOL[src], srids, sps)
+                self._commit_tables()
                 self._set_placement(srids, src)
                 actual[sp] = src
             else:
@@ -1175,26 +1193,14 @@ class TieredKVCache:
         src = int(self.physical[rid])
         ps = int(self._pool_slot[rid])
         if src in _DEVICE:
-            self._table_remove(_POOL[src], layer, slot, ps)
+            self._tables.remove(_POOL[src], [rid], [ps])
+            self._commit_tables()
             self._free_slot(_POOL[src], ps)
         else:
             self._invalidate_prefetch(np.array([rid], np.int64))
-            self._host_sentinel_remove(
-                np.array([rid], np.int64), np.array([layer]), np.array([slot])
-            )
+            self._host_sentinel_remove(np.array([rid], np.int64), np.array([layer]))
             self.host_pages.pop(rid, None)
         self._pool_slot[rid] = -1
-
-    def _table_remove(self, pool: str, layer: int, slot: int, pool_slot: int):
-        """Drop one entry from a device page-table row (swap with the last)."""
-        editor = self._editor()
-        editor.remove(pool, [layer], [slot], [pool_slot])
-        self.state = editor.commit(self.state)
-
-    def _table_append(self, pool: str, layer: int, slot: int, pool_slot: int):
-        editor = self._editor()
-        editor.insert(pool, [layer], [slot], [pool_slot])
-        self.state = editor.commit(self.state)
 
     def _insert(self, rid, layer, slot, page, k, v, dst):
         tenant = self._tenant_of_rid(rid)
@@ -1212,16 +1218,16 @@ class TieredKVCache:
             pool = _POOL[dst]
             ps = self._alloc_slot(pool, rid)
             self._scatter_rows(pool, layer, ps, kp, ks, vp, vs)
-            self._table_append(pool, layer, slot, ps)
+            self._pool_slot[rid] = ps
+            self._tables.insert(pool, [rid], [ps])
+            self._commit_tables()
         else:
             self.host_pages[rid] = tuple(_np(x) for x in (kp, ks, vp, vs))
-            ps = -2
+            self._pool_slot[rid] = -2
         self._set_placement(rid, dst)
-        self._pool_slot[rid] = ps
         if dst not in _DEVICE:
             self._host_sentinel_insert(
-                np.array([rid], np.int64), np.array([layer]), np.array([slot]),
-                _np(kp)[None], _np(ks)[None], dst,
+                np.array([rid], np.int64), np.array([layer]), _np(kp)[None], _np(ks)[None], dst
             )
 
     # ------------------------------------------------------------ release
@@ -1259,9 +1265,7 @@ class TieredKVCache:
         self._page_exists[rids] = False
         self.physical[rids] = 0
         self.manager.placement[rids] = 0
-        st = self.state
-        for f in ("warm_n", "cold_n", "host_n"):
-            getattr(st, f)[:, slot] = 0
+        self._tables.clear_slot(self.state, slot)
 
     # ------------------------------------------- preemption-to-host-tier
     # The serving frontend parks a victim slot's KV on the host tier when a
@@ -1315,9 +1319,7 @@ class TieredKVCache:
             )
         restore_levels = restore_levels or {}
         self._invalidate_prefetch(rids)
-        layers = rids // (self.bs * self.max_pages)
-        slots_v = (rids // self.max_pages) % self.bs
-        self._host_sentinel_remove(rids, layers, slots_v)
+        self._host_sentinel_remove(rids, rids // (self.bs * self.max_pages))
         pages = []
         for r in rids:
             r = int(r)
@@ -1342,7 +1344,7 @@ class TieredKVCache:
             recent_len=int(st.recent_len[slot]),
             total_len=int(st.total_len[slot]),
         )
-        st.host_n[:, slot] = 0
+        self._tables.clear_slot(st, slot, ("host",))
         st.recent_len[slot] = 0
         st.total_len[slot] = 0
         return parked
@@ -1375,13 +1377,12 @@ class TieredKVCache:
             self._pool_slot[rids] = -2
             self._set_placement(rids, levels)
             layers = rids // (self.bs * self.max_pages)
-            slots_v = (rids // self.max_pages) % self.bs
             for lvl in (HOST8, HOST4):
                 sel = np.where(levels == lvl)[0]
                 if sel.size:
                     kp = np.stack([pages[i].payload[0] for i in sel])
                     ks = np.stack([pages[i].payload[1] for i in sel])
-                    self._host_sentinel_insert(rids[sel], layers[sel], slots_v[sel], kp, ks, lvl)
+                    self._host_sentinel_insert(rids[sel], layers[sel], kp, ks, lvl)
         # Recent window + positions land exactly as parked.
         st = self.state
         st.recent_k[:, slot] = parked.recent_k.to(self.device, st.recent_k.dtype)
@@ -1401,63 +1402,60 @@ class TieredKVCache:
     @traced("cache.fold_telemetry")
     def record_telemetry(self, telemetry: Dict[str, np.ndarray]) -> None:
         """Fold per-step page masses ([L, B, MP] normalized, per pool) into
-        region hotness counts through the tables' (layer, pool_slot) -> rid
-        lookup. The "host" key (sentinel would-have-touched mass) is tracked
-        as the quality cost of the host tiers and fed to
+        region hotness counts through the host tables' rids: no table is
+        read off the device. The "host" key (sentinel would-have-touched
+        mass) is tracked as the quality cost of the host tiers and fed to
         ``manager.record_host_mass`` — never into the placement-driving
         access counts."""
-        self.manager.record_access_counts(self._fold_telemetry(telemetry) * 1000.0)
+        table_of = self._table_of_region()
+        counts = self._fold_telemetry(telemetry, table_of)
+        counts *= 1000.0
+        self.manager.record_access_counts(counts)
         host_mass = telemetry.get("host")
         if host_mass is not None:
-            self.manager.record_host_mass(self._fold_host_mass(host_mass) * 1000.0)
+            counts = self._fold_host_mass(host_mass, table_of)
+            counts *= 1000.0
+            self.manager.record_host_mass(counts)
         self.attn_launches += self.la * kops.decode_launches_per_step(n_pools=len(_POOL))
 
-    def _fold_table_mass(self, counts, mass, table, nvec, cap, live, slot_of) -> None:
-        """Accumulate per-table-entry ``mass`` [L, B, M] onto region ids.
-        The validity mask is threefold: prefix count, mapped rid exists, and
-        the rid belongs to this (layer, slot) row."""
-        rid_of = np.full((self.la, cap), -1, np.int64)
-        rid_of[live // (self.bs * self.max_pages), slot_of[live]] = live
-        m = min(mass.shape[2], table.shape[2])
-        entry = table[:, :, :m]  # [L,B,m]
-        cand = rid_of[np.arange(self.la)[:, None, None], entry]
-        valid = np.arange(m)[None, None, :] < nvec[..., None]
-        valid &= cand >= 0
-        valid &= ((cand // self.max_pages) % self.bs) == np.arange(self.bs)[None, :, None]
-        np.add.at(counts, cand[valid], mass[:, :, :m][valid])
+    def _table_of_region(self) -> np.ndarray:
+        """(n_regions + 1,) int8: the table code (``_TABLE_CODE``) of each
+        region's page, 0 where none exists or it is in flight. The extra last
+        element, 0, is what an empty entry's rid (-1) reads."""
+        out = np.zeros(self.n_regions + 1, np.int8)
+        np.multiply(_TABLE_OF_LEVEL[self.physical], self._page_exists, out=out[:-1])
+        return out
 
-    def _fold_telemetry(self, telemetry) -> np.ndarray:
-        counts = np.zeros(self.n_regions)
-        st = self.state
-        for pool, placement in (("warm", WARM), ("cold", COLD)):
-            live = np.where((self.physical == placement) & self._page_exists)[0]
-            if live.size == 0:
-                continue
-            self._fold_table_mass(
-                counts,
-                _np(telemetry[pool]),
-                _np(getattr(st, f"{pool}_table")),
-                _np(getattr(st, f"{pool}_n")),
-                getattr(st, f"{self._cls[pool]}_k").shape[1],
-                live,
-                self._pool_slot,
-            )
-        return counts
+    def _fold(self, masses: Dict[str, np.ndarray], table_of=None) -> np.ndarray:
+        """Sum per-entry masses [L, B, M] of the named tables onto region
+        ids: an entry counts when it holds a rid (it lies below its row's
+        count) whose page exists at that table's level (in-flight pages drop
+        out). A region holds at most one entry in one table, so each count
+        is its one mass in float64, as the reference's ``np.add.at`` over
+        its (layer, pool row) -> rid map gives it."""
+        t = self._tables
+        if table_of is None:
+            table_of = self._table_of_region()
+        rids, weights = [], []
+        for pool, mass in masses.items():
+            mass = _np(mass)
+            # Rows fill from the front: no entry lies past the longest row.
+            m = min(mass.shape[2], int(t.counts[pool].max()))
+            r = t.rids[pool][:, :, :m].ravel()
+            keep = table_of[r] == _TABLE_CODE[pool]
+            rids.append(r[keep])
+            weights.append(mass[:, :, :m].ravel()[keep])
+        counts = np.bincount(np.concatenate(rids), np.concatenate(weights),
+                             minlength=self.n_regions)
+        return counts.astype(np.float64, copy=False)  # an empty fold counts in int64
 
-    def _fold_host_mass(self, mass) -> np.ndarray:
+    def _fold_telemetry(self, telemetry, table_of=None) -> np.ndarray:
+        return self._fold({pool: telemetry[pool] for pool in _POOL.values()}, table_of)
+
+    def _fold_host_mass(self, mass, table_of=None) -> np.ndarray:
         """Fold sentinel would-have-touched masses [L, B, MPh] into region
         counts, against the host sentinel table."""
-        counts = np.zeros(self.n_regions)
-        live = np.where(
-            ((self.physical == HOST8) | (self.physical == HOST4)) & self._page_exists
-        )[0]
-        if live.size:
-            st = self.state
-            self._fold_table_mass(
-                counts, _np(mass), _np(st.host_table), _np(st.host_n),
-                st.host_summary.shape[1], live, self._host_slot,
-            )
-        return counts
+        return self._fold({"host": mass}, table_of)
 
     def _observe_adaptive_media(self) -> None:
         """Feed compressibility-adaptive media devices the real encoded

@@ -230,18 +230,17 @@ def test_table_commit_checks_class_rows(models, pool):
     cache = te.cache
     rows = {"warm": cache.state.c8_k.shape[1], "cold": cache.state.c4_k.shape[1],
             "host": cache.state.host_summary.shape[1]}[pool]
-    ed = cache._editor()
+    ed = cache._tables
     ed.tables[pool][0, 1, 3] = rows  # past the count: stale, exempt
     cache.state = ed.commit(cache.state)
-    ed = cache._editor()
-    ed.insert(pool, [0], [1], [rows - 1])
+    ed.insert(pool, [cache.rid(0, 1, 0)], [rows - 1])
     cache.state = ed.commit(cache.state)
-    ed = cache._editor()
-    ed.insert(pool, [1], [0], [rows])
+    rid = cache.rid(1, 0, 0)
+    ed.insert(pool, [rid], [rows])
     with pytest.raises(IndexError, match="outside the"):
         ed.commit(cache.state)
-    ed = cache._editor()
-    ed.insert(pool, [1], [0], [-1])
+    ed.remove(pool, [rid], [rows])  # a failed commit keeps its edits on the host
+    ed.insert(pool, [rid], [-1])
     with pytest.raises(IndexError, match="outside the"):
         ed.commit(cache.state)
 

@@ -466,22 +466,81 @@ def test_no_cross_tenant_page_reads():
     assert all(c._page_exists[rid] for rid in c.host_pages)
 
 
-@pytest.mark.parametrize("seed", range(5))
-def test_fold_telemetry_matches_reference_loop(seed):
-    """The port's vectorized fold equals the reference's fold and its
-    per-entry loop on the same telemetry."""
+def _staged(p, rng):
+    """Stage one cohort of a device pool and one of a host tier in both caches
+    and commit neither: those pages are in flight (out of every table)."""
+    for levels in ((WARM, COLD), (HOST8, HOST4)):
+        for src in levels:
+            rids = np.where(p.t.physical == src)[0]
+            if rids.size:
+                rids = rng.choice(rids, max(rids.size // 2, 1), replace=False)
+                dst = HOST4 if src in (WARM, COLD) else WARM
+                for c in (p.j, p.t):
+                    c.stage_cohort(np.sort(rids), src, dst)
+                break
+    assert (p.t.physical == kvc.INFLIGHT).any()
+    np.testing.assert_array_equal(p.t.physical, p.j.physical)
+    p.check()
+
+
+FOLD_CASES = ([(s, "placed") for s in range(5)] + [(s, "in_flight") for s in range(3)]
+              + [(s, "host_mass") for s in range(3)])
+
+
+@pytest.mark.parametrize("seed,case", FOLD_CASES,
+                         ids=[str(s) if c == "placed" else f"{c}-{s}" for s, c in FOLD_CASES])
+def test_fold_telemetry_matches_reference_loop(seed, case):
+    """The port's fold from its host tables equals the reference's fold and
+    its per-entry loop on the same telemetry: pages placed, pages in flight
+    (staged, not committed), and the host sentinels' masses."""
     rng = np.random.default_rng(seed)
     p = Pair(slots=4)
     p.fill(rng, int(rng.integers(4, p.t.n_regions + 1)))
     live = np.where(p.t._page_exists)[0]
     p.migrate_batch(live, np.array([rng.choice([WARM, COLD, HOST8, HOST4]) for _ in live]))
+    if case == "in_flight":
+        _staged(p, rng)
     # f32 masses, as the decode step emits them
     telemetry = {pool: rng.random(tuple(getattr(p.t.state, f"{pool}_table").shape),
-                                  dtype=np.float32) for pool in ("warm", "cold")}
-    got = p.t._fold_telemetry(telemetry)
+                                  dtype=np.float32) for pool in ("warm", "cold", "host")}
     jtel = {k: jnp.asarray(v) for k, v in telemetry.items()}
+    if case == "host_mass":
+        got = p.t._fold_host_mass(telemetry["host"])
+        assert got.sum() > 0
+        np.testing.assert_array_equal(got, p.j._fold_host_mass(jtel["host"]))
+        return
+    got = p.t._fold_telemetry(telemetry)
     np.testing.assert_array_equal(got, p.j._fold_telemetry(jtel))
     np.testing.assert_allclose(got, p.j._fold_telemetry_loop(jtel), rtol=1e-12)
+
+
+def test_fold_reads_no_device_table():
+    """Device tables overwritten with garbage after the last commit: the
+    fold still gives the reference's counts and host masses on the unspoiled
+    state, and uploads nothing."""
+    rng = np.random.default_rng(7)
+    p = Pair(slots=4)
+    p.fill(rng, 40)
+    live = np.where(p.t._page_exists)[0]
+    p.migrate_batch(live, np.array([rng.choice([WARM, COLD, HOST8, HOST4]) for _ in live]))
+    telemetry = {pool: rng.random(tuple(getattr(p.t.state, f"{pool}_table").shape),
+                                  dtype=np.float32) for pool in ("warm", "cold", "host")}
+
+    def uploads():
+        return sum(r[4] for r in p.t.tracer.records(0, 1) if r[0] == "cache.table_uploads")
+
+    before = uploads()
+    assert before > 0
+    st = p.t.state
+    for pool in ("warm", "cold", "host"):
+        getattr(st, f"{pool}_table").random_(0, 1 << 20)
+        getattr(st, f"{pool}_n").fill_(st.warm_table.shape[2])
+    p.t.record_telemetry(telemetry)
+    p.j.record_telemetry({k: jnp.asarray(v) for k, v in telemetry.items()})
+    assert p.t.manager.telemetry._accum.sum() > 0 and p.t.manager.host_mass.sum() > 0
+    np.testing.assert_array_equal(p.t.manager.telemetry._accum, p.j.manager.telemetry._accum)
+    np.testing.assert_array_equal(p.t.manager.host_mass, p.j.manager.host_mass)
+    assert uploads() == before
 
 
 def test_record_telemetry_feeds_manager():

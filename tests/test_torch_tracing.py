@@ -10,8 +10,9 @@ backpressure, so one busy tick stalls. Spans must
 nest as the engine calls them, each child inside its parent; the four
 ``EngineStats`` clocks must be the sums of their spans; the records of a
 range of steps must sum to the deltas of the clocks and counters over those
-steps; and the live prefetch and launch counts must read the pipeline and
-the cache. Under ``torch.profiler`` every span must appear as a
+steps; every table commit must leave one ``cache.table_uploads`` record; and
+the live prefetch and launch counts must read the pipeline and the cache.
+Under ``torch.profiler`` every span must appear as a
 ``repro_torch.*`` user annotation, and tokens, placements and pipeline
 counters must equal the run without a profiler, which enters no
 ``record_function`` at all.
@@ -61,6 +62,8 @@ PARENTS = {
     "pipeline.stall_ticks": {"pipeline.tick"},
     "prefetch.hits": {"cache.submit"},
     "prefetch.misses": {"cache.submit"},
+    "cache.table_uploads": {"engine.prefill", "engine.page_out", "pipeline.stage",
+                            "pipeline.commit"},
 }
 
 
@@ -103,6 +106,14 @@ def serve(model, profile=False, trace_path=None):
         return append(*args)
 
     cache.append_pages = tap
+    commits = []
+    commit = cache._tables.commit
+
+    def upload(state):
+        commits.append(eng.tracer._open)
+        return commit(state)
+
+    cache._tables.commit = upload
     acquire = cache.staging_ring.try_acquire
     refused = []
 
@@ -135,7 +146,7 @@ def serve(model, profile=False, trace_path=None):
         prof.export_chrome_trace(str(trace_path))
     snaps[stats.steps + 1] = clocks_and_counters(eng)
     return types.SimpleNamespace(eng=eng, stats=stats, reqs=reqs, snaps=snaps,
-                                 placements=placements, page_outs=page_outs,
+                                 placements=placements, page_outs=page_outs, commits=commits,
                                  records=eng.tracer.records(0, stats.steps + 1))
 
 
@@ -192,6 +203,8 @@ def test_spans_nest_as_the_engine_calls_them(run):
                       ("pipeline.stall_ticks", "stall_ticks"),
                       ("prefetch.hits", "prefetch_hits"), ("prefetch.misses", "prefetch_misses")):
         assert sum(r[4] for r in recs if r[0] == key) == getattr(p, attr), key
+    # One upload record per table commit, inside the span that committed.
+    assert [r[2] for r in recs if r[0] == "cache.table_uploads"] == run.commits
 
 
 def test_clocks_are_the_sums_of_their_spans(run):
