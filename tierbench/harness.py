@@ -1,12 +1,14 @@
 """One run of one cell: set-up, the open-loop window, the traced slice and
 the correctness check.
 
-Everything that belongs to a cell is data found by name: the workload entry
-of ``BENCHMARK.json`` names a configuration (``configs/<config>.json``, its
-plain reference ``references/<reference>.py``) and a traffic mix
+Everything that belongs to a cell is found by name: the workload entry of
+``BENCHMARK.json`` names a configuration (``configs/<config>.json``, its
+family module ``families/<family>.py`` and its plain
+reference ``references/<reference>.py``) and a traffic mix
 (``mixes/<traffic>.json``); ``cells/<workload>.json`` holds the engine
 geometry, the offered rate and the check's limits; each per-layer metric is
-``metrics/<name>.py``.
+``metrics/<name>.py``. The harness reaches the model's shape only through
+the family module.
 
 The loop drives ``repro_torch.serving.engine.TieredEngine`` through its
 public calls: ``start_request`` into each free slot, FIFO from the harness's
@@ -30,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from tierbench import counts, peaks, tco, traffic, weights
+from tierbench import counts, families, peaks, tco, traffic, weights
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -70,16 +72,11 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
 def build_engine(conf: Dict, cell: Dict, params, device):
     """The program under test, built from the configuration file: the
     model, the tiering settings and the engine geometry."""
-    from repro_torch.configs.base import ModelConfig, TierScapeRunConfig
+    from repro_torch.configs.base import TierScapeRunConfig
     from repro_torch.models import Model
     from repro_torch.serving.engine import TieredEngine
 
-    m = counts.dims(conf)
-    mc = ModelConfig(name=conf["name"], family=conf["family"], n_layers=m.layers, d_model=m.d,
-                     n_heads=m.heads, n_kv_heads=m.kv, d_ff=m.ff, vocab_size=m.vocab,
-                     head_dim=m.hd, qk_norm=m.qk_norm, qkv_bias=m.qkv_bias,
-                     rope_theta=float(conf["rope_theta"]), norm_eps=float(conf["rms_norm_eps"]),
-                     act="swiglu", tie_embeddings=bool(conf.get("tie_word_embeddings", False)))
+    mc = families.of(conf).model_config(conf)
     t = conf["tiering"]
     ts = TierScapeRunConfig(enabled=True, policy=t["policy"], alpha=float(t["alpha"]),
                             window_steps=int(t["window_steps"]),
@@ -91,6 +88,14 @@ def build_engine(conf: Dict, cell: Dict, params, device):
     return TieredEngine(Model(mc, device=device), params, batch_slots=int(cell["batch_slots"]),
                         page_tokens=int(t["page_tokens"]), max_seq_len=int(cell["max_seq_len"]),
                         recent_window=int(t["recent_window"]), ts=ts, device=device)
+
+
+def page_costs(conf: Dict) -> np.ndarray:
+    """USD of one page in placement levels 0..4 (``tco.level_costs``)."""
+    m = families.of(conf).shape(conf)
+    t = conf["tiering"]
+    return tco.level_costs(int(t["page_tokens"]) * m.kv * m.hd * 2, int(t["warm_bits"]),
+                           int(t["cold_bits"]))
 
 
 STAT_FIELDS = ("steps", "windows", "completed", "overlapped_steps", "decode_s", "daemon_s",
@@ -476,10 +481,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     horizon = warm_s + seconds + SCHEDULE_TAIL_S
     arrivals = traffic.schedule(cell.mix, float(c["rate_rps"]), horizon, seed, conf["vocab_size"],
                                 int(c["max_seq_len"]))
-    m = counts.dims(conf)
-    t = conf["tiering"]
-    costs = tco.level_costs(int(t["page_tokens"]) * m.kv * m.hd * 2, int(t["warm_bits"]),
-                            int(t["cold_bits"]))
+    costs = page_costs(conf)
     span = (lambda name: torch.profiler.record_function(name)) if trace else None
     t0 = clock()
     setup_s = time.perf_counter() - t_start
@@ -566,7 +568,8 @@ def decode_least_s(res: Result, step: int, slots, totals) -> float:
     """The least time of one decode step (``peaks.least_time_s``) from the
     cache it read: each active slot's device pages and recent rows."""
     conf = res.cell.conf
-    m = counts.dims(conf)
+    fam = families.of(conf)
+    m = fam.shape(conf)
     t = conf["tiering"]
     pt = int(t["page_tokens"])
     lv = res.drv.levels_at(step)[:, slots]  # [layers, active, pages]
@@ -578,7 +581,7 @@ def decode_least_s(res: Result, step: int, slots, totals) -> float:
     kv_bytes = (int(warm.sum()) * counts.page_bytes(m, pt, int(t["warm_bits"]))
                 + int(cold.sum()) * counts.page_bytes(m, pt, int(t["cold_bits"]))
                 + int(recent.sum()) * 2 * m.kv * m.hd * counts.BF16)
-    flops, nbytes = counts.decode_step(m, res.drv.shape[1], keys, kv_bytes)
+    flops, nbytes = fam.decode_step(conf, res.drv.shape[1], keys, kv_bytes)
     return peaks.least_time_s(flops, nbytes)
 
 

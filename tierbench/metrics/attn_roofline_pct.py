@@ -3,7 +3,7 @@ bound. Bytes: ``counts.attention_step_bytes`` of every traced step, from the
 pages each active slot held per tier before the step and its live recent
 rows; time: the kernel's device time in the traced slice."""
 
-from tierbench import counts, peaks, trace
+from tierbench import counts, families, peaks, trace
 from tierbench.harness import COLD, HOST4, HOST8, WARM
 
 
@@ -15,7 +15,7 @@ def read(res):
     if launches == 0 or secs <= 0:
         return None
     conf = res.cell.conf
-    m = counts.dims(conf)
+    m = families.of(conf).shape(conf)
     t = conf["tiering"]
     pt = int(t["page_tokens"])
     drv = res.drv

@@ -6,7 +6,7 @@ time: the kernel's device time in the traced slice."""
 
 import numpy as np
 
-from tierbench import counts, peaks, trace
+from tierbench import counts, families, peaks, trace
 from tierbench.harness import COLD, HOST4, HOST8, INFLIGHT, WARM
 
 
@@ -29,7 +29,7 @@ def read(res):
     if launches == 0 or secs <= 0:
         return None
     conf = res.cell.conf
-    m = counts.dims(conf)
+    m = families.of(conf).shape(conf)
     t = conf["tiering"]
     pt = int(t["page_tokens"])
     bits = {WARM: int(t["warm_bits"]), COLD: int(t["cold_bits"]), HOST8: 8, HOST4: 4,

@@ -36,7 +36,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from tierbench import counts, harness, tco, traffic, weights
+    from tierbench import harness, traffic, weights
     from repro_torch.kernels import build
 
     if not torch.cuda.is_available():
@@ -48,9 +48,7 @@ def main() -> int:
     params = weights.make(conf, args.seed, "cuda:0")
     eng = harness.build_engine(conf, c, params, "cuda:0")
     harness.warm_up(eng, cell.mix, conf, args.seed)
-    m = counts.dims(conf)
-    t = conf["tiering"]
-    costs = tco.level_costs(int(t["page_tokens"]) * m.kv * m.hd * 2)
+    costs = harness.page_costs(conf)
     warm = float(c["warm_s"])
     for rate in (float(r) for r in args.rates.split(",")):
         arrivals = traffic.schedule(cell.mix, rate, warm + args.seconds, args.seed,

@@ -8,14 +8,15 @@ pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from tierbench import counts, harness, tco, traffic  # noqa: E402
+from tierbench.families import dense  # noqa: E402
 
 MIX = {"name": "t", "arrivals": {"kind": "poisson"},
        "prompt_tokens": {"dist": "lognormal", "median": 768, "sigma": 0.3, "min": 512, "max": 1280},
        "output_tokens": {"dist": "lognormal", "median": 64, "sigma": 0.5, "min": 32, "max": 128}}
 # The port's qwen1_5_4b SMOKE shapes.
-SMOKE = {"hidden_size": 64, "intermediate_size": 160, "num_attention_heads": 4,
-         "num_key_value_heads": 4, "num_hidden_layers": 2, "vocab_size": 256, "head_dim": 16,
-         "attention_bias": True, "qk_norm": False}
+SMOKE = {"family": "dense", "hidden_size": 64, "intermediate_size": 160,
+         "num_attention_heads": 4, "num_key_value_heads": 4, "num_hidden_layers": 2,
+         "vocab_size": 256, "head_dim": 16, "attention_bias": True, "qk_norm": False}
 
 
 def _key(s):
@@ -132,17 +133,18 @@ def test_tco_table_is_the_ports_at_smoke_shapes():
 
 
 def test_counts_match_hand_counts_at_smoke_shapes():
-    m = counts.dims(SMOKE)
     lin = 64 * 12 * 16 + 4 * 16 * 64 + 3 * 64 * 160
-    assert counts.linear_params(m) == lin == 47104
+    assert dense.linear_params(dense.dims(SMOKE)) == lin == 47104
     wb = 2 * (lin * 2 + 2 * 64 * 4 + 12 * 16 * 2) + 64 * 4 + 64 * 256 * 2
-    assert counts.weight_bytes(m) == wb == 223232
-    flops, nbytes = counts.prefill(m, 10)
+    assert dense.weight_bytes(SMOKE) == wb == 223232
+    flops, nbytes = dense.prefill(SMOKE, 10)
     assert flops == 2 * 10 * 2 * lin + 2 * 4 * 4 * 16 * 55 + 2 * 64 * 256
     assert nbytes == wb + 10 * 64 * 2
+    m = dense.shape(SMOKE)
+    assert (m.layers, m.heads, m.kv, m.hd) == (2, 4, 4, 16)
     assert counts.page_bytes(m, 16, 8) == 2 * 16 * 4 * (16 + 4)
     assert counts.page_bytes(m, 16, 4) == 2 * 16 * 4 * (8 + 4)
-    flops, nbytes = counts.decode_step(m, 2, 100, 5000)
+    flops, nbytes = dense.decode_step(SMOKE, 2, 100, 5000)
     assert flops == 2 * 2 * (2 * lin + 64 * 256) + 4 * 4 * 16 * 100
     assert nbytes == wb + 2 * 64 * 2 + 5000
     # One slot, per layer 3 warm, 1 cold, 2 host pages and 20 recent rows.
