@@ -14,7 +14,10 @@ configuration (``configs/<name>.json``, a dict):
                         (FLOPs, bytes) of one decode step over ``slots``
                         batch rows, ``keys`` attended keys summed over
                         attention layers and active slots and ``kv_bytes`` of
-                        cache read
+                        cache read; ``keys`` counts every key of a held
+                        page, so in a window layer it includes the masked
+                        head of the page that straddles the window's start,
+                        at most ``page_tokens - 1`` keys a layer and slot
     weight_bytes(conf)  bytes a forward reads of weights
 """
 

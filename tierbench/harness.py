@@ -297,8 +297,14 @@ def end_to_end(drv: Driver, ws: float, we: float) -> Dict[str, Optional[float]]:
 # ------------------------------------------------------------- checking
 def cache_view(drv: Driver, rec: Rec, conf: Dict):
     """What the request's decode steps read of its cache: ``widths`` [n-1,
-    layers, P] (the codec width each page holds, 0 before it leaves the
-    recent window) and ``read`` (on the device), P cut to the pages used."""
+    layers, P] (the codec width each page holds) and ``read`` (on the
+    device), P cut to the pages used.
+
+    A width of 0 means the program holds no page there: the page has not
+    left the recent window yet, or the program released it. A reference
+    reads such a page from its own bf16 keys and values, and a reference of
+    a windowed model masks it by its window, so a page released while still
+    inside the window shows as a logit gap."""
     t = conf["tiering"]
     bits = {WARM: int(t["warm_bits"]), COLD: int(t["cold_bits"]), HOST8: 8, HOST4: 4}
     n = len(rec.req.out_tokens)
@@ -564,6 +570,18 @@ def per_layer(res: Result) -> Dict[str, float]:
     return out
 
 
+def recent_rows(lv: np.ndarray, totals: np.ndarray, pt: int) -> np.ndarray:
+    """Dense recent rows each active slot's decode step reads, the new token
+    included: ``lv`` the placement levels [layers, active, pages] before the
+    step, ``totals`` [active] its tokens. The engine pages every layer out
+    at once, so the recent window starts after the last page that any layer
+    holds, in every layer: also in one that released its older pages
+    (level 0 below pages another layer holds)."""
+    held = (lv != 0).any(axis=0)  # [active, pages]
+    ends = np.where(held.any(-1), held.shape[-1] - held[:, ::-1].argmax(-1), 0)
+    return totals - ends * pt + 1
+
+
 def decode_least_s(res: Result, step: int, slots, totals) -> float:
     """The least time of one decode step (``peaks.least_time_s``) from the
     cache it read: each active slot's device pages and recent rows."""
@@ -575,12 +593,11 @@ def decode_least_s(res: Result, step: int, slots, totals) -> float:
     lv = res.drv.levels_at(step)[:, slots]  # [layers, active, pages]
     warm = (lv == WARM).sum(-1)
     cold = (lv == COLD).sum(-1)
-    paged = (lv != 0).sum(-1)
-    recent = totals[None] - paged * pt + 1  # [layers, active]
-    keys = int((warm + cold).sum()) * pt + int(recent.sum())
+    rows = lv.shape[0] * int(recent_rows(lv, totals, pt).sum())  # over layers and slots
+    keys = int((warm + cold).sum()) * pt + rows
     kv_bytes = (int(warm.sum()) * counts.page_bytes(m, pt, int(t["warm_bits"]))
                 + int(cold.sum()) * counts.page_bytes(m, pt, int(t["cold_bits"]))
-                + int(recent.sum()) * 2 * m.kv * m.hd * counts.BF16)
+                + rows * 2 * m.kv * m.hd * counts.BF16)
     flops, nbytes = fam.decode_step(conf, res.drv.shape[1], keys, kv_bytes)
     return peaks.least_time_s(flops, nbytes)
 

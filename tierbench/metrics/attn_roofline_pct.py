@@ -1,10 +1,11 @@
 """Kernels: the fused tiered decode attention (kernel #1) against its byte
 bound. Bytes: ``counts.attention_step_bytes`` of every traced step, from the
 pages each active slot held per tier before the step and its live recent
-rows; time: the kernel's device time in the traced slice."""
+rows (``harness.recent_rows``); time: the kernel's device time in the
+traced slice."""
 
 from tierbench import counts, families, peaks, trace
-from tierbench.harness import COLD, HOST4, HOST8, WARM
+from tierbench.harness import COLD, HOST4, HOST8, WARM, recent_rows
 
 
 def read(res):
@@ -23,9 +24,8 @@ def read(res):
     for k in range(*res.slice_steps):
         slots, totals, _ = drv.step_slots[k - drv.base]
         lv = drv.levels_at(k)[:, slots]
-        paged = (lv != 0).sum(-1)  # [layers, active], equal over layers
         total += counts.attention_step_bytes(
             m, pt, int(t["warm_bits"]), int(t["cold_bits"]), (lv == WARM).sum(-1),
             (lv == COLD).sum(-1), ((lv == HOST8) | (lv == HOST4)).sum(-1),
-            (totals - paged[0] * pt + 1))
+            recent_rows(lv, totals, pt))
     return 100.0 * total / peaks.HBM_BYTES_PER_S / secs
