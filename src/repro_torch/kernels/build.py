@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 KERNELS = ("quant_page", "transcode_page", "paged_attention", "dequant_page",
-           "paged_quant_attention", "cxl_line")
+           "paged_quant_attention", "cxl_line", "decode_glue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,6 +45,9 @@ LAUNCHES: Dict[str, int] = {
     "paged_quant_attention": 0,
     "cxl_encode_pages": 0,
     "cxl_decode_pages": 0,
+    "rmsnorm": 0,
+    "qkv_epilogue": 0,
+    "silu_mul": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -18,7 +18,10 @@ launches.
 ``page_hotness`` turns per-page mass telemetry into the normalized hotness
 the TierScape manager consumes; ``decode_launches_per_step`` is the modeled
 launches-per-decode-step the serving cache bills (1 fused, one per pool
-otherwise), independent of device.
+otherwise), independent of device. The tiered decode step builds every
+layer's unified table at once (``step_tables``), calls
+``tiered_decode_attention`` a layer on its slice for the raw telemetry, and
+normalises every layer's hotness at once (``step_hotness``).
 """
 
 from __future__ import annotations
@@ -131,12 +134,13 @@ def _validated_page_tokens(pools, host) -> int:
 
 
 def _tier_col(table, n_rows, code):
-    """Tier-code column for one table: entries past the valid prefix become
-    ``TIER_INVALID``. The single enforcement point that keeps stale
-    ``(slot, tier_code)`` rows — including rows whose slot would alias row 0
-    of an empty codec class's dummy buffer — out of the fused kernel."""
-    mp = table.shape[1]
-    valid = torch.arange(mp, dtype=torch.int32, device=table.device)[None] < n_rows[:, None]
+    """Tier-code column for one table [..., B, MP] (counts [..., B]):
+    entries past the valid prefix become ``TIER_INVALID``. The single
+    enforcement point that keeps stale ``(slot, tier_code)`` rows — including
+    rows whose slot would alias row 0 of an empty codec class's dummy buffer
+    — out of the fused kernel."""
+    mp = table.shape[-1]
+    valid = torch.arange(mp, dtype=torch.int32, device=table.device) < n_rows[..., None]
     return torch.where(valid, code, TIER_INVALID).to(torch.int32)
 
 
@@ -196,11 +200,60 @@ def _check_class_bounds(uni_slot, uni_tier, rows8: int, rows4: int) -> None:
                 raise class_rows_error(cls, int(s.min()), int(s.max()), rows)
 
 
-def _unified_operands(q, pools, recent_k, host):
+def unified_table(pools, host, base: Optional[Dict[str, int]] = None):
+    """The fused kernel's unified page table: ``(uni_slot, uni_tier,
+    layout)``, the pools' tables side by side in name order, then the host
+    sentinels', as global class rows (each pool's ``page_table`` plus its
+    class offset ``base[name]``, 0 where not given) and tier codes, with the
+    {name: (col_lo, col_hi)} slot layout that slices per-pool hotness back
+    out of the unified mass. Tables are [..., B, MP] and counts [..., B]:
+    one layer's, or every layer's at once with a leading layer axis (the
+    tiered step builds them once a step so). ``(None, None, {})`` without
+    pools and host."""
+    slot_cols, tier_cols = [], []
+    layout: Dict[str, Tuple[int, int]] = {}
+    col = 0
+    for n in sorted(pools):
+        p = pools[n]
+        mp = p["page_table"].shape[-1]
+        code = TIER_INT8 if int(p["bits"]) == 8 else TIER_INT4
+        slot_cols.append(p["page_table"].to(torch.int32) + (base or {}).get(n, 0))
+        tier_cols.append(_tier_col(p["page_table"], p["n_pages"], code))
+        layout[n] = (col, col + mp)
+        col += mp
+    if host is not None:
+        mp = host["table"].shape[-1]
+        slot_cols.append(host["table"].to(torch.int32))
+        tier_cols.append(_tier_col(host["table"], host["n"], TIER_HOST))
+        layout["host"] = (col, col + mp)
+        col += mp
+    if col == 0:
+        return None, None, layout
+    return (torch.cat(slot_cols, dim=-1).contiguous(), torch.cat(tier_cols, dim=-1).contiguous(),
+            layout)
+
+
+def step_tables(pools, host, rows8: int, rows4: int):
+    """Every layer's unified page table at once, for the tiered decode step:
+    ``unified_table`` over tables and counts with a leading layer axis, the
+    pools class-major (their tables hold global class-buffer rows, so no
+    per-pool offset). On the fused route the class-bounds check runs here,
+    once a step, outside a capture, as ``_unified_operands`` runs it once a
+    call; each layer's slice then goes to ``tiered_decode_attention`` as its
+    ``table``."""
+    slot, tier, layout = unified_table(pools, host)
+    if _USE_FUSED and slot is not None and not capturing(slot.device):
+        _check_class_bounds(slot, tier, rows8, rows4)
+    return slot, tier, layout
+
+
+def _unified_operands(q, pools, recent_k, host, table=None):
     """Assemble the fused kernel's operands from N tier pools: two
     codec-class payload buffers plus the unified page table. Returns the
     kernel operands plus the {name: (col_lo, col_hi)} slot layout used to
-    slice per-pool hotness back out of the unified mass."""
+    slice per-pool hotness back out of the unified mass. ``table`` is this
+    call's ``(uni_slot, uni_tier, layout)`` where the caller built and
+    checked it already (``step_tables``); it takes class-major pools."""
     b = q.shape[0]
     hd = q.shape[-1]
     kv = recent_k.shape[2]
@@ -217,50 +270,36 @@ def _unified_operands(q, pools, recent_k, host):
     )
     base = dict(zip(by_bits[8], offs8))
     base.update(zip(by_bits[4], offs4))
-
-    slot_cols, tier_cols = [], []
-    layout: Dict[str, Tuple[int, int]] = {}
-    col = 0
-    for n in names:
-        p = pools[n]
-        mp = p["page_table"].shape[1]
-        code = TIER_INT8 if int(p["bits"]) == 8 else TIER_INT4
-        slot_cols.append(p["page_table"].to(torch.int32) + base[n])
-        tier_cols.append(_tier_col(p["page_table"], p["n_pages"], code))
-        layout[n] = (col, col + mp)
-        col += mp
+    if table is None:
+        uni_slot, uni_tier, layout = unified_table(pools, host, base)
+    elif any(base.values()):
+        raise ValueError("a prebuilt unified table holds class rows without per-pool offsets; "
+                         "its pools must alias one buffer a codec class (class-major layout)")
+    else:
+        uni_slot, uni_tier, layout = table
     if host is not None:
-        mp = host["table"].shape[1]
-        slot_cols.append(host["table"].to(torch.int32))
-        tier_cols.append(_tier_col(host["table"], host["n"], TIER_HOST))
-        layout["host"] = (col, col + mp)
-        col += mp
         summary = host["summary"].to(torch.float32)
     else:
         summary = torch.zeros((1, kv, hd), dtype=torch.float32, device=dev)
-
-    if col == 0:  # no pools, no host rows: recent-window-only launch
+    if uni_slot is None:  # no pools, no host rows: recent-window-only launch
         uni_slot = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         uni_tier = torch.full((b, 1), TIER_INVALID, dtype=torch.int32, device=dev)
-    else:
-        uni_slot = torch.cat(slot_cols, dim=1).contiguous()
-        uni_tier = torch.cat(tier_cols, dim=1).contiguous()
 
     k8, s8k, v8, s8v = ops8
     k4, s4k, v4, s4v = ops4
     # A captured step skips the check (it copies to the host), as the
     # reference skips it under tracing; the cache checks its tables at every
     # commit (``kv_cache._TableEditor.commit``).
-    if not capturing(dev):
+    if table is None and not capturing(dev):
         _check_class_bounds(uni_slot, uni_tier, int(k8.shape[0]), int(k4.shape[0]))
     return (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary, uni_slot, uni_tier, t, layout)
 
 
-def _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry):
+def _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry, table, raw):
     b = q.shape[0]
     rlen = torch.as_tensor(recent_len, dtype=torch.int32, device=q.device).expand(b).contiguous()
     (k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary,
-     uni_slot, uni_tier, t, layout) = _unified_operands(q, pools, recent_k, host)
+     uni_slot, uni_tier, t, layout) = _unified_operands(q, pools, recent_k, host, table)
     # ``t`` is the launch's single validated page-tokens value.
     out, m, lsum, mass, base = fused_attn_kernel(
         q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, summary,
@@ -268,6 +307,8 @@ def _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry):
     )
     if not with_telemetry:
         return out
+    if raw:
+        return out, (mass, base, m, lsum)
     hot = {
         name: page_hotness(mass[:, lo:hi], base[:, lo:hi], m, lsum)
         for name, (lo, hi) in layout.items()
@@ -284,6 +325,8 @@ def tiered_decode_attention(
     cfg=None,
     with_telemetry: bool = False,
     host: Optional[Dict[str, torch.Tensor]] = None,
+    table=None,
+    raw: bool = False,
 ):
     """Attention over tiered compressed KV pools + dense recent window.
 
@@ -293,10 +336,18 @@ def tiered_decode_attention(
     ``page_tokens``), the hotness dict also carries "host": the normalized
     would-have-touched mass of host-resident pages.
 
+    With ``raw`` the telemetry is instead the un-normalised ``(mass, base,
+    m_tot, l_tot)``: mass and base [B, cols] over the unified table's
+    columns (the pools in name order, then the host's), m_tot and l_tot
+    [B, H]; ``step_hotness`` normalises every layer's at once. ``table`` is
+    this layer's ``(uni_slot, uni_tier, layout)`` from ``step_tables``; the
+    fused path launches on it in place of building and checking its own.
+
     Fused (default): one launch per call. ``use_fused(False)``: one launch
     per pool plus the plain recent partial and merge."""
     if _USE_FUSED:
-        return _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry)
+        return _fused_path(q, pools, recent_k, recent_v, recent_len, host, with_telemetry, table,
+                           raw)
     b = q.shape[0]
     rlen = torch.as_tensor(recent_len, dtype=torch.int32, device=q.device).expand(b)
     parts = [_ref.dense_recent_attention(q, recent_k, recent_v, rlen)]
@@ -315,6 +366,9 @@ def tiered_decode_attention(
         masses["host"] = _ref.host_page_mass(
             q, host["summary"], host["table"], host["n"], host["page_tokens"]
         )
+    if raw:  # ``masses`` is in the unified table's column order
+        return out, (torch.cat([mb[0] for mb in masses.values()], dim=-1),
+                     torch.cat([mb[1] for mb in masses.values()], dim=-1), m_tot, l_tot)
     hot = {name: page_hotness(mass, base, m_tot, l_tot) for name, (mass, base) in masses.items()}
     return out, hot
 
@@ -323,7 +377,16 @@ def page_hotness(mass, base, m_tot, l_tot):
     """Rebase per-page local-max masses to the merged global softmax.
 
     Heads were collapsed in the mass telemetry; normalize by the summed
-    head partition function at the global max base."""
+    head partition function at the global max base. mass/base [..., B, MP],
+    m_tot/l_tot [..., B, H]: one layer, or every layer of a step at once."""
     mref = m_tot.amax(dim=-1)
-    z = (l_tot * torch.exp(m_tot - mref[:, None])).sum(dim=-1)
-    return mass * torch.exp(base - mref[:, None]) / torch.clamp(z[:, None], min=1e-30)
+    z = (l_tot * torch.exp(m_tot - mref[..., None])).sum(dim=-1)
+    return mass * torch.exp(base - mref[..., None]) / torch.clamp(z[..., None], min=1e-30)
+
+
+def step_hotness(stats, layout):
+    """``page_hotness`` of every layer of a step at once: ``stats`` holds
+    each layer's raw telemetry of ``tiered_decode_attention``, ``layout``
+    the unified columns of each tier. Returns {tier: [L, B, MP]}."""
+    hot = page_hotness(*(torch.stack(s) for s in zip(*stats)))
+    return {name: hot[..., lo:hi] for name, (lo, hi) in layout.items()}

@@ -56,14 +56,19 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
     return p
 
 
+def qkv_products(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three projections alone: x [B, S, D] -> q [B,S,H,hd], k/v
+    [B,S,KV,hd]."""
+    return (torch.einsum("bsd,dhk->bshk", x, p["wq"]), torch.einsum("bsd,dhk->bshk", x, p["wk"]),
+            torch.einsum("bsd,dhk->bshk", x, p["wv"]))
+
+
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> q [B,S,H,hd], k/v [B,S,KV,hd]: biases, then qk-norm
     (per head, over hd), then rope on q and k (M-RoPE with ``cfg.mrope``:
     ``positions`` is then [3, B, S])."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = qkv_products(p, x)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:

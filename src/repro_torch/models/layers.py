@@ -68,44 +68,54 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., seq, heads, head_dim]; positions: broadcastable to [..., seq]."""
-    head_dim = x.shape[-1]
-    freqs = rope_freqs(head_dim, theta, x.device)  # [hd/2]
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, device):
+    """RoPE's f32 cos and sin at ``positions`` [..., seq]: each
+    [..., seq, 1, hd/2], broadcast over the heads."""
+    freqs = rope_freqs(head_dim, theta, device)  # [hd/2]
     angles = positions[..., None].to(torch.float32) * freqs  # [..., seq, hd/2]
-    cos = torch.cos(angles)[..., None, :]  # [..., seq, 1, hd/2]
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., seq, heads, head_dim] rotated in f32 by ``rope_cos_sin``'s
+    cos and sin, cast back."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
-def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
-                sections) -> torch.Tensor:
-    """Qwen2-VL multimodal RoPE: the rotary dims split into (t, h, w)
-    sections, each rotated by its own position axis.
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: broadcastable to [..., seq]."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta, x.device))
 
-    x: [batch, seq, heads, head_dim]; positions3: [3, batch, seq] (text
-    tokens carry identical t/h/w ids, where M-RoPE equals 1-D RoPE)."""
-    head_dim = x.shape[-1]
+
+def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float, sections):
+    """Qwen2-VL multimodal RoPE's f32 cos and sin: the rotary dims split
+    into (t, h, w) sections, each at its own position axis. positions3
+    [3, batch, seq] -> each [batch, seq, 1, hd/2], as ``rope_cos_sin``'s
+    (text tokens carry identical t/h/w ids, where M-RoPE equals 1-D RoPE)."""
     half = head_dim // 2
     if sum(sections) != half:
         raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
     if positions3.dim() != 3 or positions3.shape[0] != 3:
         raise ValueError(f"mrope positions must be [3, B, S], got {tuple(positions3.shape)}")
-    freqs = rope_freqs(head_dim, theta, x.device)  # [half]
+    dev = positions3.device
+    freqs = rope_freqs(head_dim, theta, dev)  # [half]
     # Which section (and so which position axis) each rotary dim uses: the
     # count of section ends at or below it. The ends are Python ints, so
     # nothing is copied from the host and a CUDA graph can capture the step.
-    dims = torch.arange(half, device=x.device)
+    dims = torch.arange(half, device=dev)
     sec_id = (dims >= sections[0]).long() + (dims >= sections[0] + sections[1]).long()  # [half]
     pos_per_dim = positions3.to(torch.float32)[sec_id]  # [half, B, S]
     angles = pos_per_dim.permute(1, 2, 0) * freqs  # [B, S, half]
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (``mrope_cos_sin``). x: [batch, seq, heads,
+    head_dim]; positions3: [3, batch, seq]."""
+    return rotate(x, *mrope_cos_sin(positions3, x.shape[-1], theta, sections))
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -33,10 +33,12 @@ def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=(), d_ff=None,
     }
 
 
-def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, swiglu=layers.swiglu) -> torch.Tensor:
+    """The dense FFN; ``swiglu`` computes SiLU(gate) * up (the tiered decode
+    step passes its kernel)."""
     if cfg.act == "swiglu":
         gate = torch.matmul(x, p["w_gate"])
         up = torch.matmul(x, p["w_up"])
-        return torch.matmul(layers.swiglu(gate, up), p["w_down"])
+        return torch.matmul(swiglu(gate, up), p["w_down"])
     h = torch.matmul(x, p["w_up"]) + p["b_up"]
     return torch.matmul(layers.gelu(h), p["w_down"]) + p["b_down"]

@@ -122,12 +122,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(cfg.family)
 
 
-def block_ffn(p: dict, cfg: ModelConfig, h: torch.Tensor):
+def block_ffn(p: dict, cfg: ModelConfig, h: torch.Tensor, swiglu=layers.swiglu):
     """A block's FFN on its normed input: the MoE FFN for the ``moe``
-    family, the dense MLP otherwise. Returns (y, aux)."""
+    family, the dense MLP otherwise (its SiLU(gate) * up by ``swiglu``).
+    Returns (y, aux)."""
     if cfg.family == "moe":
         return moe.moe_ffn(p["moe"], cfg, h)
-    return mlp.mlp(p["ffn"], cfg, h), {}
+    return mlp.mlp(p["ffn"], cfg, h, swiglu), {}
 
 
 def transformer_block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):

@@ -1211,7 +1211,7 @@ def test_graph_replay_counts_launches_and_skips_host_checks(gen, fused, monkeypa
         eng.step()  # the warm-up step runs eagerly and returns; then the capture
         torch.cuda.synchronize()
         assert build.launch_counts()[name] == per_step
-        assert len(checks) == (eng.la if fused else 0)
+        assert len(checks) == (1 if fused else 0)  # once a step, for every layer
         checks.clear()
         cluster = pa.LAST_CLUSTER[name]
         pa.LAST_CLUSTER[name] = 0
@@ -1231,3 +1231,143 @@ def test_graph_replay_counts_launches_and_skips_host_checks(gen, fused, monkeypa
     assert counts["fused_tiered_attention" if not fused else "paged_quant_attention"] == 0
     assert not checks and pa.LAST_CLUSTER[name] == cluster >= 1
     assert eng._step_fn.replays == 6
+    # The glue kernels: two norms a layer and the final one, one QKV
+    # epilogue and one SiLU * up a layer, in every step that ran.
+    assert counts["rmsnorm"] == 7 * (2 * eng.la + 1)
+    assert counts["qkv_epilogue"] == counts["silu_mul"] == 7 * eng.la
+    for kernel in ("rmsnorm_kernel", "qkv_epilogue_kernel", "silu_mul_kernel"):
+        seen = sum(e.count for e in prof.key_averages() if kernel in e.key)
+        assert seen * 7 == 6 * counts[kernel[:-len("_kernel")]], kernel
+
+
+# ------------------------------------------------ the decode step's glue kernels
+GLUE_ARCHS = ["qwen1_5_4b", "qwen3_32b"]  # 20 MHA heads with QKV biases; 64/8 GQA, qk-norm
+EPILOGUE_ARCHS = GLUE_ARCHS + ["qwen2_vl_72b"]  # and M-RoPE, whose cos and sin it takes too
+
+
+def _one_ulp_apart(got, want) -> bool:
+    """Every bf16 value of ``got`` within one ulp of ``want`` (8
+    significant bits), the larger value's ulp."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((g - w).abs() <= ulp).all())
+
+
+def _glue_inputs(gen, arch, b):
+    from repro_torch.configs import get
+
+    cfg = get(arch)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    return cfg, rnd
+
+
+@pytest.mark.parametrize("arch", GLUE_ARCHS)
+@pytest.mark.parametrize("b", [2, 6])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_within_one_ulp(gen, arch, b, dtype):
+    """One launch a call; from the plain version within one bf16 ulp, and
+    in f32 within ``assert_close``'s f32 default (only the sum of squares is
+    in another order, which moves an f32 result by a few ulps)."""
+    from repro_torch.kernels import decode_glue
+
+    cfg, rnd = _glue_inputs(gen, arch, b)
+    x = rnd(b, 1, cfg.d_model, scale=3.0).to(dtype)
+    w = 1 + 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")
+    before = build.launch_counts()["rmsnorm"]
+    got = decode_glue.rmsnorm(w, x, cfg.norm_eps)
+    assert build.launch_counts()["rmsnorm"] - before == 1
+    want = decode_glue.rmsnorm_plain(w, x, cfg.norm_eps)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.bfloat16:
+        assert _one_ulp_apart(got, want)
+    else:
+        torch.testing.assert_close(got, want)
+
+
+@pytest.mark.parametrize("arch", EPILOGUE_ARCHS)
+@pytest.mark.parametrize("b", [2, 6])
+def test_qkv_epilogue_kernel_matches_plain(gen, arch, b):
+    """Biases, qk-norm and RoPE (M-RoPE's for ``qwen2_vl_72b``) at the
+    cells' widths: q, and the k and v rows written, within one bf16 ulp of
+    the plain version; every other row of the windows byte-equal, and
+    nothing written for a slot whose row is at or beyond the window."""
+    from repro_torch.kernels import decode_glue
+    from repro_torch.runtime import serve
+
+    cfg, rnd = _glue_inputs(gen, arch, b)
+    h, kv, hd, r = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_(), 32
+    q, k, v = rnd(b, 1, h, hd), rnd(b, 1, kv, hd), rnd(b, 1, kv, hd)
+    bias = (rnd(h, hd, scale=0.5), rnd(kv, hd, scale=0.5), rnd(kv, hd, scale=0.5))
+    norms = tuple(1 + 0.1 * torch.randn(hd, generator=gen, device="cuda") for _ in range(2))
+    total_len = torch.tensor([257 + 911 * i for i in range(b)], dtype=torch.int32, device="cuda")
+    cos, sin = serve.step_rope(cfg, total_len, "cuda")
+    rows = [5, r, 0, 31, r + 7, 17][:b]  # a slot at the window's end and one beyond it
+    recent_len = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    window = (rnd(b, r, kv, hd), rnd(b, r, kv, hd))
+    got_w, want_w = [w.clone() for w in window], [w.clone() for w in window]
+    args = dict(bias=bias if cfg.qkv_bias else None, qk_norm=norms if cfg.qk_norm else None,
+                eps=cfg.norm_eps)
+    before = build.launch_counts()["qkv_epilogue"]
+    got = decode_glue.qkv_epilogue(q, k, v, cos, sin, *got_w, recent_len, **args)
+    assert build.launch_counts()["qkv_epilogue"] - before == 1
+    want = decode_glue.qkv_epilogue_plain(q, k, v, cos, sin, *want_w, recent_len, **args)
+    assert got.shape == q.shape and _one_ulp_apart(got, want)
+    for g, w, old in zip(got_w, want_w, window):
+        for i, row in enumerate(rows):
+            other = [j for j in range(r) if j != row]
+            assert torch.equal(g[i, other], old[i, other]), (i, row)
+            if row < r:
+                assert _one_ulp_apart(g[i, row], w[i, row]) and not torch.equal(g[i, row],
+                                                                                 old[i, row])
+            else:
+                assert torch.equal(g[i], old[i])
+
+
+@pytest.mark.parametrize("arch", GLUE_ARCHS)
+@pytest.mark.parametrize("b", [2, 6])
+def test_silu_mul_kernel_matches_plain(gen, arch, b):
+    """SiLU(gate) * up at the cells' FFN widths: one launch, within one
+    bf16 ulp of the plain version (the same f32 ops and ``expf``)."""
+    from repro_torch.kernels import decode_glue
+
+    cfg, rnd = _glue_inputs(gen, arch, b)
+    gate, up = rnd(b, 1, cfg.d_ff, scale=4.0), rnd(b, 1, cfg.d_ff)
+    before = build.launch_counts()["silu_mul"]
+    got = decode_glue.silu_mul(gate, up)
+    assert build.launch_counts()["silu_mul"] - before == 1
+    want = decode_glue.silu_mul_plain(gate, up)
+    assert got.shape == gate.shape and _one_ulp_apart(got, want)
+
+
+@pytest.mark.parametrize("arch", EPILOGUE_ARCHS)
+def test_captured_glue_step_matches_the_eager_plain_step(gen, arch):
+    """The engine's captured step on the glue kernels (the first call
+    captures, the next replay) against the eager plain branch on the same
+    state: logits within the model tests' bar, hotness within kernel #1's
+    2e-4."""
+    from repro_torch.runtime import serve
+
+    eng = _graph_engine(arch)
+    graphed = eng._step_fn
+    plain = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=False, device="cuda")
+    for i in range(3):
+        tok = torch.full((eng.bs, 1), 3 + i, dtype=torch.int64, device="cuda")
+        st = eng.cache.state
+        lg, tkv, _, hot = graphed(eng.params, tok, st, None)
+        lw, tkw, _, hw = plain(eng.params, tok, st, None)
+        torch.testing.assert_close(lg.float(), lw.float(), rtol=0, atol=0.0625)
+        for k in ("warm", "cold", "host"):
+            torch.testing.assert_close(hot[k], hw[k], rtol=2e-4, atol=2e-4)
+        assert torch.equal(tkv.recent_len, tkw.recent_len)
+        # The windows differ only in the row each slot wrote.
+        r = st.recent_k.shape[2]
+        kept = (torch.arange(r, device="cuda")[None] != st.recent_len[:, None].long())
+        for f in ("recent_k", "recent_v"):
+            assert torch.equal(getattr(tkv, f)[:, kept], getattr(st, f)[:, kept])
+            assert torch.equal(getattr(tkw, f)[:, kept], getattr(st, f)[:, kept])
+    assert graphed.replays == 2 and sum(graphed.captures.values()) == 1
