@@ -47,8 +47,8 @@ Phases (any failure exits non-zero before the result line):
      (and the glue kernels: two ``rmsnorm`` a layer and the final one, one
      ``qkv_epilogue`` a layer, one ``silu_mul`` a dense SwiGLU layer, each
      step), the glue kernels held to their plain versions at the step's
-     shapes, and one kernel-branch step against the plain branch at phase
-     4's bars; for ``qwen2_vl_72b`` also one forward of a 2 x 512 vision
+     shapes, and one step on the card against the same step on the CPU at
+     phase 4's bars; for ``qwen2_vl_72b`` also one forward of a 2 x 512 vision
      batch (the first 64 positions patch embeddings, 3-axis positions), held
      finite, and a 2-slot decode step at unequal lengths whose M-RoPE cos
      and sin, q and k rows in every layer equal 1-D RoPE's at each slot's
@@ -152,8 +152,10 @@ Phases (any failure exits non-zero before the result line):
   3b. at reduced depth and full width, the cache's serial and async
      executors land bit-identical placements and payloads, with prefetch on
      and off, and under a ``seeded_storm`` fault plan;
-  4. mid-run, one tiered decode step on the same state: kernel vs plain
-     branch, and the per-pool step vs the fused step (logits, hotness);
+  4. mid-run, one tiered decode step on the same state: the step on the
+     card vs the same step on CPU copies of the params and state (the
+     kernels' plain versions), and the per-pool step vs the fused step
+     (logits, hotness);
   4b. every engine on the card replays its decode step as one CUDA graph,
      captured once per route: in phases 2b, 2c, 2g, 3 and 6 the captured
      step (a replay) on the mid-run state is held to the eager kernel step
@@ -186,7 +188,7 @@ Phases (any failure exits non-zero before the result line):
      time and tokens/s), ``cxl_encode_pages`` encodes each page-out's
      layer-0 K/V pages (the first prefill's held byte-equal to its plain
      version and to ``quant_pages(., 8)``), launch counts equal the cache's
-     calls, one kernel-branch step agrees with the plain branch, and phase
+     calls, one step on the card agrees with the same step on the CPU, and phase
      5's timings are taken again at this run's shapes (hd=64);
   7. a profile of one decode step of each engine, eager and captured, last:
      once the profiler has run, every later launch costs more host time.
@@ -724,21 +726,33 @@ def _compare_steps(lk, lp, hk, hp, what: str) -> dict:
 
 def step_compare(eng: TieredEngine) -> dict:
     """One decode step on the engine's live state (the hybrid's SSM side
-    state included), kernel branch vs plain branch."""
+    state included): the eager step on the card against the same step built
+    on the CPU and run on CPU copies of the params and the state, where every
+    wrapper runs its plain version. The copies are freed after."""
     tokens, st = step_tokens(eng), eng.cache.state
-    k_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
-    p_step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=False, device=DEV)
-    lk, _, _, hk = k_step(eng.params, tokens, st, eng.ssm_state)
-    lp, _, _, hp = p_step(eng.params, tokens, st, eng.ssm_state)
+    step = serve.make_tiered_decode_step(eng.model, eng.ts, device=DEV)
+    lk, _, _, hk = step(eng.params, tokens, st, eng.ssm_state)
     torch.cuda.synchronize()
-    return _compare_steps(lk, lp, hk, hp, f"{eng.cfg.name} step kernel vs plain")
+    t0 = time.perf_counter()
+    plain = serve.make_tiered_decode_step(Model(eng.cfg, eng.model.parallel, device="cpu"),
+                                          eng.ts, device="cpu")
+    params = pytree.tree_map(lambda t: t.cpu(), eng.params)
+    on_cpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).cpu()
+                                        for f in dataclasses.fields(st)})
+    extra = None if eng.ssm_state is None else tuple(x.cpu() for x in eng.ssm_state)
+    lp, _, _, hp = plain(params, tokens.cpu(), on_cpu, extra)
+    del params, on_cpu, extra
+    out = _compare_steps(lk.cpu(), lp, {k: v.cpu() for k, v in hk.items()}, hp,
+                         f"{eng.cfg.name} step on the card vs on the CPU")
+    out["cpu_step_s"] = time.perf_counter() - t0
+    return out
 
 
 def per_pool_compare(eng: TieredEngine) -> dict:
     """The per-pool step (``use_fused(False)``: one ``paged_quant_attention``
     launch per pool and layer) vs the fused step on the same state."""
     tokens, st = step_tokens(eng), eng.cache.state
-    step = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    step = serve.make_tiered_decode_step(eng.model, eng.ts, device=DEV)
     lf, _, _, hf = step(eng.params, tokens, st, eng.ssm_state)
     before = build.launch_counts()
     try:
@@ -770,7 +784,7 @@ def graph_compare(eng: TieredEngine) -> dict:
     tokens, st = step_tokens(eng), eng.cache.state
     copy = dataclasses.replace(st, **{f: getattr(st, f).clone() for f in COPIED_FIELDS})
     extra = None if eng.ssm_state is None else tuple(x.clone() for x in eng.ssm_state)
-    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, device=DEV)
     captures = dict(graphed.captures)
     lg, tg, eg, hg = graphed(eng.params, tokens, st, eng.ssm_state)
     lw, tw, ew, hw = eager(eng.params, tokens, copy, extra)
@@ -813,7 +827,7 @@ def graph_tokens(cfg, model, params, host_media_device: str = "") -> dict:
         eng = TieredEngine(model, params, batch_slots=2, page_tokens=T,
                            max_seq_len=GRAPH_MAX_SEQ, recent_window=R, ts=ts, device=DEV)
         if name == "eager":
-            eng._step_fn = serve.make_tiered_decode_step(model, ts, use_kernels=True, device=DEV)
+            eng._step_fn = serve.make_tiered_decode_step(model, ts, device=DEV)
         rng = np.random.default_rng(SEED + 16)
         reqs = [eng.submit(rng.integers(1, cfg.vocab_size, n), max_new_tokens=GRAPH_STEPS + 1)
                 for n in GRAPH_PROMPTS]
@@ -1632,7 +1646,7 @@ def phase_times(eng, counts, pp_counts, spies, state, errs, encoder=None) -> lis
 
 
 def phase_profile(eng, state, captured: bool = False) -> dict:
-    """Where one decode step's time goes: 3 kernel-branch steps on the
+    """Where one decode step's time goes: 3 decode steps on the
     mid-run state under ``torch.profiler`` (the eager step, or with
     ``captured`` the engine's captured step, replayed); device time by
     kernel and the device's busy share of the host wall time. Only the
@@ -1643,7 +1657,7 @@ def phase_profile(eng, state, captured: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     step = (eng._step_fn if captured else
-            serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV))
+            serve.make_tiered_decode_step(eng.model, eng.ts, device=DEV))
     captures = dict(getattr(step, "captures", {}))
     tokens = torch.ones((eng.bs, 1), dtype=torch.int64, device=DEV)
     step(eng.params, tokens, state, eng.ssm_state)
@@ -1696,8 +1710,9 @@ def phase_profile(eng, state, captured: bool = False) -> dict:
 def phase_one_step(name: str) -> dict:
     """Full width at depth ``ONE_STEP_LAYERS`` on the default path: prefill
     of one ``ONE_STEP_PROMPT``-token prompt, ``ONE_STEP_DECODE`` tiered
-    decode steps (one fused launch a layer), then one kernel-branch step
-    against the plain branch at phase 4's bars. Frees the engine after."""
+    decode steps (one fused launch a layer), then one step on the card
+    against the same step on the CPU at phase 4's bars. Frees the engine
+    after."""
     cfg = dataclasses.replace(get(name), n_layers=ONE_STEP_LAYERS)
     model, params = init_params(cfg)
     ts = TierScapeRunConfig(enabled=True, alpha=ASYNC_ALPHA, window_steps=16,
@@ -1798,7 +1813,7 @@ def mrope_step_check(eng: TieredEngine) -> dict:
     # The patched epilogue runs only in an eager step: the engine's
     # captured step would replay without calling it.
     graphed = eng._step_fn
-    eng._step_fn = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device=DEV)
+    eng._step_fn = serve.make_tiered_decode_step(eng.model, eng.ts, device=DEV)
     decode_glue.qkv_epilogue = check
     try:
         eng.step()

@@ -185,6 +185,13 @@ def check_aligned(kernel: str, name: str, t, nbytes: int) -> None:
                          f"vectors (data pointer {t.data_ptr():#x})")
 
 
+def on_card(t) -> bool:
+    """Whether a wrapper launches its kernel on ``t``: true for a CUDA
+    tensor, which then launches or raises. A CPU or ``meta`` tensor takes
+    the wrapper's plain version. The port's one choice of kernel or plain."""
+    return t.device.type == "cuda"
+
+
 def capturing(device) -> bool:
     """Whether a CUDA graph capture is under way on ``device``'s current
     stream (False on the CPU, where nothing is captured)."""

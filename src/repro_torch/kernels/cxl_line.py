@@ -14,7 +14,7 @@ in f32 (the controller decompresses inline). Its kernel is the row-group
 dequant step at int8 -> f32, the one ``dequant_pages`` runs
 (``row_group.dequant_geometry``: every even head_dim <= 256; pointers off
 its vectors raise). The cache reads HOST8 pages that live on the ``cxl_hw``
-expander through it. Both are bound by bytes. On a CPU tensor the plain
+expander through it. Both are bound by bytes. Off the card (``build.on_card``) the plain
 versions (``ref.cxl_encode_kv_page`` / ``ref.cxl_decode_kv_page``) run.
 """
 
@@ -34,7 +34,7 @@ def cxl_encode_pages(pages: torch.Tensor):
     """pages [P, T, KV, hd] bf16/f32 (hd a multiple of 64) -> (payload int8
     [P, T, KV, hd], scales f32 [P, T, KV], line_bits int32
     [P, T, KV, hd // 64])."""
-    if pages.device.type == "cpu":
+    if not build.on_card(pages):
         return ref.cxl_encode_kv_page(pages)
     name = "cxl_encode_pages"
     p, t, kv, hd = pages.shape
@@ -61,7 +61,7 @@ def cxl_encode_pages(pages: torch.Tensor):
 def cxl_decode_pages(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(payload int8 [P, T, KV, hd], scales f32 [P, T, KV]) -> pages f32
     [P, T, KV, hd]."""
-    if payload.device.type == "cpu":
+    if not build.on_card(payload):
         return ref.cxl_decode_kv_page(payload, scales)
     name = "cxl_decode_pages"
     p, t, kv, hd = payload.shape

@@ -12,8 +12,8 @@ inputs once and writing its outputs once, so its time is the launch's.
 The plain versions are the ops the step ran before (``models.layers``), and
 the kernels follow them op for op in f32; only the order of a norm's sum of
 squares differs (within one ulp of the activation type). Each wrapper runs
-its plain version on CPU tensors, and on CUDA tensors checks the operands and
-launches its kernel (or raises).
+its plain version off the card (``build.on_card``: CPU and ``meta`` tensors),
+and on CUDA tensors checks the operands and launches its kernel (or raises).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     """``layers.rmsnorm``: x [..., D] (bf16 or f32), w [D] f32 -> x's type;
     one launch, one block a row, which each thread reads as 16-byte vectors
     (D a multiple of 16 bytes, at most ``rmsnorm_max_d``)."""
-    if x.device.type == "cpu":
+    if not build.on_card(x):
         return rmsnorm_plain(w, x, eps)
     name = "rmsnorm"
     dev, d = x.device, x.shape[-1]
@@ -106,7 +106,7 @@ def qkv_epilogue(q, k, v, cos, sin, recent_k, recent_v, recent_len,
     KV key and KV value heads a slot). ``bias`` is (bq [H, hd], bk, bv
     [KV, hd]) in q's type, ``qk_norm`` (q_norm, k_norm [hd]) f32, cos/sin
     [B, 1, 1, hd/2] f32, ``recent_len`` [B] int32, the windows bf16."""
-    if q.device.type == "cpu":
+    if not build.on_card(q):
         return qkv_epilogue_plain(q, k, v, cos, sin, recent_k, recent_v, recent_len, bias,
                                   qk_norm, eps)
     name = "qkv_epilogue"
@@ -154,7 +154,7 @@ def silu_mul_plain(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``layers.swiglu``: round(SiLU(gate) in f32) * up, in one launch."""
-    if gate.device.type == "cpu":
+    if not build.on_card(gate):
         return silu_mul_plain(gate, up)
     name = "silu_mul"
     dev = gate.device

@@ -13,7 +13,7 @@ contiguous, keeps the next rows in flight,
 turns codes into exact floats without a conversion instruction and
 multiplies each by its row's scale once (IEEE), so the output equals the
 plain version bit for bit in f32 and in bf16. Pointers off the geometry's
-vectors raise. On a CPU tensor the plain version runs.
+vectors raise. Off the card (``build.on_card``) the plain version runs.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def dequant_pages(payload: torch.Tensor, scales: torch.Tensor, bits: int,
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
-    if payload.device.type == "cpu":
+    if not build.on_card(payload):
         return dequant_pages_plain(payload, scales, bits, out_dtype)
     name = "dequant_pages"
     p, t, kv, hdp = payload.shape

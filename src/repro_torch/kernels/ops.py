@@ -238,11 +238,12 @@ def step_tables(pools, host, rows8: int, rows4: int):
     ``unified_table`` over tables and counts with a leading layer axis, the
     pools class-major (their tables hold global class-buffer rows, so no
     per-pool offset). On the fused route the class-bounds check runs here,
-    once a step, outside a capture, as ``_unified_operands`` runs it once a
-    call; each layer's slice then goes to ``tiered_decode_attention`` as its
-    ``table``."""
+    once a step, outside a capture and where the tables hold values (not on
+    ``meta``), as ``_unified_operands`` runs it once a call; each layer's
+    slice then goes to ``tiered_decode_attention`` as its ``table``."""
     slot, tier, layout = unified_table(pools, host)
-    if _USE_FUSED and slot is not None and not capturing(slot.device):
+    if (_USE_FUSED and slot is not None and slot.device.type != "meta"
+            and not capturing(slot.device)):
         _check_class_bounds(slot, tier, rows8, rows4)
     return slot, tier, layout
 

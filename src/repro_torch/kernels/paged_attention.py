@@ -68,32 +68,47 @@ def fused_tiered_attention_plain(
     recent_k, recent_v, uni_slot, uni_tier, recent_len, page_tokens: int,
 ):
     """The kernel's function in plain PyTorch, built from the per-pool
-    oracles: each codec class is one ``paged_quant_attention`` pass whose
-    rows are valid where the tier code names that class, host rows are
-    ``host_page_mass`` where the code is ``TIER_HOST``, and the partials
-    merge by the kernel's rule (``ref.merge_ranks``: at the maximum over the
-    non-empty ones; ``m`` is the largest valid score, 0 where ``l`` is 0)."""
+    oracles: each codec class is one ``paged_quant_attention`` pass over the
+    unified-table columns where its tier code occurs, each row valid where
+    the code names that class (a row of another code is masked by it, never
+    read), host rows are ``host_page_mass`` over the columns where
+    ``TIER_HOST`` occurs, and the partials merge by the kernel's rule
+    (``ref.merge_ranks``: at the maximum over the non-empty ones; ``m`` is
+    the largest valid score, 0 where ``l`` is 0). A class no column holds is
+    skipped: its partial would have ``l`` 0, which the merge weighs 0. So
+    each pass costs what the oracle's pass over that pool costs."""
     b, ms = uni_slot.shape
     dev = q.device
     rlen = torch.as_tensor(recent_len, dtype=torch.int32, device=dev).expand(b)
-    iota = torch.arange(ms, dtype=torch.int32, device=dev)[None].expand(b, ms)
-    full = torch.full((b,), ms, dtype=torch.int32, device=dev)
     parts = [ref.dense_recent_attention(q, recent_k, recent_v, rlen)]
     mass = torch.zeros((b, ms), dtype=torch.float32, device=dev)
     base = torch.full((b, ms), NEG_INF, dtype=torch.float32, device=dev)
+
+    def columns(code):
+        """The columns where ``code`` occurs, and where in them it does."""
+        cols = (uni_tier == code).any(dim=0).nonzero()[:, 0]
+        return cols, uni_tier[:, cols] == code
+
     for code, ops, bits in ((TIER_INT8, (k8, s8k, v8, s8v), 8), (TIER_INT4, (k4, s4k, v4, s4v), 4)):
-        sel = uni_tier == code
-        table = torch.where(sel, uni_slot, 0)
-        pos = torch.where(sel, iota, 2**30)
-        out_u, m, lsum, pm, pb = ref.paged_quant_attention(q, *ops, table, full, bits,
-                                                             slot_pos=pos)
+        cols, sel = columns(code)
+        n = cols.numel()
+        if not n:
+            continue
+        iota = torch.arange(n, dtype=torch.int32, device=dev)[None].expand(b, n)
+        out_u, m, lsum, pm, pb = ref.paged_quant_attention(
+            q, *ops, torch.where(sel, uni_slot[:, cols], 0),
+            torch.full((b,), n, dtype=torch.int32, device=dev), bits,
+            slot_pos=torch.where(sel, iota, 2**30))
         parts.append((out_u, m, lsum))
-        mass = torch.where(sel, pm, mass)
-        base = torch.where(sel, pb, base)
-    sel = uni_tier == TIER_HOST
-    hm, hb = ref.host_page_mass(q, host_summary, torch.where(sel, uni_slot, 0), full, page_tokens)
-    mass = torch.where(sel, hm, mass)
-    base = torch.where(sel, hb, base)
+        mass[:, cols] = torch.where(sel, pm, mass[:, cols])
+        base[:, cols] = torch.where(sel, pb, base[:, cols])
+    cols, sel = columns(TIER_HOST)
+    if cols.numel():
+        hm, hb = ref.host_page_mass(q, host_summary, torch.where(sel, uni_slot[:, cols], 0),
+                                    torch.full((b,), cols.numel(), dtype=torch.int32, device=dev),
+                                    page_tokens)
+        mass[:, cols] = torch.where(sel, hm, mass[:, cols])
+        base[:, cols] = torch.where(sel, hb, base[:, cols])
 
     acc, m_tot, l_tot = ref.merge_ranks(parts)
     out = acc / torch.clamp(l_tot, min=1e-30)[..., None]
@@ -124,7 +139,7 @@ def fused_tiered_attention(
     base [B,MS]): (m, l) are the fully merged logsumexp stats and mass/base
     follow the unified-table rows (pool pages: page mass at its local base;
     host sentinels: would-have-touched mass; invalid: 0 / NEG_INF)."""
-    if q.device.type == "cpu":
+    if not build.on_card(q):
         return fused_tiered_attention_plain(
             q, k8, s8k, v8, s8v, k4, s4k, v4, s4v, host_summary,
             recent_k, recent_v, uni_slot, uni_tier, recent_len, page_tokens,
@@ -196,14 +211,14 @@ def paged_quant_attention(
 
     Returns (out [B,H,hd] UNNORMALIZED f32, m [B,H] (0 for an empty pool),
     l [B,H], mass [B,MP], base [B,MP]); rows >= n_pages give mass 0 and base
-    -1e30. On CPU tensors the plain version ``ref.paged_quant_attention``
-    runs. On the GPU the operands are checked, the valid table prefix is held
-    to the pool's rows (one copy to the host; skipped while a CUDA graph is
-    captured), and
+    -1e30. Off the card (``build.on_card``) the plain version
+    ``ref.paged_quant_attention`` runs. On the GPU the operands are checked,
+    the valid table prefix is held to the pool's rows (one copy to the host;
+    skipped while a CUDA graph is captured), and
     ``paged_quant_attention_launch`` launches the kernel."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if q.device.type == "cpu":
+    if not build.on_card(q):
         return ref.paged_quant_attention(q, k_pages, k_scales, v_pages, v_scales,
                                          page_table, n_pages, bits)
     name = "paged_quant_attention"

@@ -9,8 +9,8 @@ gives each row of ``head_dim`` values a group of lanes that load it in
 flight while it quantizes the current ones, and multiplies by the row's
 reciprocal scale except within 2^-15 of a rounding tie, where it divides:
 the codes are byte-equal to the plain version's. Pages may be f32 or bf16
-(the KV cache's own type: the kernel's upcast is exact). On a CPU tensor
-the plain version (``ref.quant_kv_page``) runs.
+(the KV cache's own type: the kernel's upcast is exact). Off the card
+(``build.on_card``) the plain version (``ref.quant_kv_page``) runs.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def quant_pages(pages: torch.Tensor, bits: int):
     uint8 [P, T, KV, hd//2], scales f32 [P, T, KV])."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if pages.device.type == "cpu":
+    if not build.on_card(pages):
         return ref.quant_kv_page(pages, bits)
     name = "quant_pages"
     p, t, kv, hd = pages.shape

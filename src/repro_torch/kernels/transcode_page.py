@@ -9,8 +9,8 @@ requantizes a row in registers, a group of lanes per row loading it in
 16-byte vectors (``row_group.row_geometry``) with the next rows' loads in
 flight, so the dense page never reaches device memory; a reciprocal multiply
 stands in for the divide except within 2^-15 of a rounding tie, and the
-payload is byte-equal to ``ref.transcode_kv_page``. On a CPU tensor the
-plain version runs.
+payload is byte-equal to ``ref.transcode_kv_page``. Off the card
+(``build.on_card``) the plain version runs.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def transcode_pages(payload: torch.Tensor, scales: torch.Tensor, src_bits: int, 
         raise ValueError(f"bits must be 8 or 4, got {src_bits} -> {dst_bits}")
     if src_bits == dst_bits:
         return payload, scales
-    if payload.device.type == "cpu":
+    if not build.on_card(payload):
         return ref.transcode_kv_page(payload, scales, src_bits, dst_bits)
     name = "transcode_pages"
     p, t, kv, hdp = payload.shape

@@ -28,6 +28,7 @@ import repro_torch.configs as configs
 from repro_torch import pytree
 from repro_torch.configs.base import SHAPES, ModelConfig, ParallelConfig, TierScapeRunConfig
 from repro_torch.device import abstract
+from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models import inputs as minputs
@@ -188,7 +189,19 @@ def build_cell(
         else:
             ssm_sds = (_meta((0,), torch.float32), _meta((0,), torch.float32))
             ssm_specs = (P(), P())
-        fn = serve_rt.make_tiered_decode_step(model, ts_cfg, use_kernels=False, device="cpu")
+        step = serve_rt.make_tiered_decode_step(model, ts_cfg, device="cpu")
+
+        def fn(*args):
+            # On the per-pool route, which reads each pool's pages once as
+            # the card does: the fused route's plain version picks each codec
+            # class's columns by value (``nonzero``), which ``meta`` lacks.
+            fused = kops.fused_route()
+            kops.use_fused(False)
+            try:
+                return step(*args)
+            finally:
+                kops.use_fused(fused)
+
         tkv_specs = serve_rt.tiered_kv_state_specs(mesh, parallel, bsz, cold_pages)
         in_specs = (p_specs, P(bax, None), tkv_specs, ssm_specs)
         return Cell(arch, shape_name, "tiered_decode", fn, in_specs,

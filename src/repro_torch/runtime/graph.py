@@ -2,8 +2,8 @@
 token: the port's counterpart of the reference engine's compiled step,
 ``jax.jit(serve_rt.make_tiered_decode_step(...))`` (``repro.serving.engine``).
 
-``GraphedStep`` wraps the eager kernel step
-(``runtime.serve.make_tiered_decode_step(..., use_kernels=True)``) and keeps
+``GraphedStep`` wraps the eager step on the card
+(``runtime.serve.make_tiered_decode_step(..., device="cuda")``) and keeps
 its signature and its results: step(params, token, tkv, extra_state) ->
 (logits, tkv', extra_state', telemetry).
 
@@ -33,8 +33,8 @@ its signature and its results: step(params, token, tkv, extra_state) ->
 
 On the CPU nothing is captured. The same static-buffer plumbing runs, and a
 replay runs the eager step on the static inputs and copies its results into
-the static outputs, as a graph would. The engine keeps the eager step there
-(the JAX engine's own choice); tests call this class directly.
+the static outputs, as a graph would. The engine keeps the eager step there;
+tests call this class directly.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ and hybrid families, one device).
 KV cache's warm/cold pages live in two device-resident quantized pools (host
 tiers are managed outside the step, visible only as sentinel rows), and
 attention runs as ONE fused pass over all pools + host sentinels + the dense
-recent window per layer — the CUDA kernel with ``use_kernels=True``, the
-plain oracle (``kernels.ref.fused_tiered_attention``) otherwise. Per-page
+recent window per layer — the CUDA kernel on the card, its plain version on
+the CPU (the wrappers choose by the tensors' device). Per-page
 softmax mass, including the host pages' would-have-touched mass, comes back
 as telemetry for the TierScape manager. For the hybrid family the tiered KV
 serves the shared attention block's applications, and the SSM groups between
@@ -40,7 +40,6 @@ from repro_torch.device import abstract, resolve_device
 from repro_torch.kernels import decode_glue as glue_k
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kernels import ref as kref
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models import attention as attn_mod
@@ -284,13 +283,17 @@ def init_tiered_kv_state(
 
 def check_tiered(cfg: ModelConfig) -> None:
     """Refuse what has no KV to tier: an attention-free model (the
-    reference's message) and an encoder, which has no decode."""
+    reference's message) and an encoder, which has no decode; and a model
+    without RMSNorm, since the step's norms are the ``rmsnorm`` kernel."""
     if not cfg.has_attention:
         raise ValueError("tiered KV serving needs attention layers")
     if cfg.family == "encoder":
         raise ValueError(f"{cfg.name}: family 'encoder' has no decode, so no KV to tier")
     if cfg.family not in TIERED_FAMILIES:
         raise ValueError(cfg.family)
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: the tiered decode step takes RMSNorm only, not "
+                         f"{cfg.norm!r}")
 
 
 def step_positions(cfg: ModelConfig, total_len: torch.Tensor) -> torch.Tensor:
@@ -316,12 +319,7 @@ def step_rope(cfg: ModelConfig, total_len: torch.Tensor, device):
     return cos.contiguous(), sin.contiguous()
 
 
-def make_tiered_decode_step(
-    model: Model,
-    ts_cfg: TierScapeRunConfig,
-    use_kernels: bool = False,
-    device="cuda",
-):
+def make_tiered_decode_step(model: Model, ts_cfg: TierScapeRunConfig, device="cuda"):
     """Decode step over tiered KV pools for the attention decoders (dense,
     MoE, VLM) and the hybrid family.
 
@@ -331,22 +329,21 @@ def make_tiered_decode_step(
     [L, B, MP]. For the hybrid, ``extra_state`` is the SSM side state
     (conv [L_ssm, B, K-1, C], ssm [L_ssm, B, H, P, N]) and comes back as new
     tensors (the input is not modified); for the dense family it passes
-    through. ``use_kernels`` runs the fused CUDA kernel (one launch per
-    attention layer); the plain branch runs the oracle the kernel is held
-    to.
+    through.
 
-    The kernel branch does what every layer shares once a step, at its top:
+    One body serves every device: each wrapper it calls launches its kernel
+    on CUDA tensors and runs its plain version on CPU and ``meta`` ones
+    (``kernels.build.on_card``), so the CPU runs the body the card captures
+    and replays. What every layer shares is made once, at the step's top:
     kernel #1's unified tables for all layers (``kops.step_tables``; the
-    class-bounds check once, outside a capture) and, after the last layer,
-    the hotness normalisation over every layer's masses at once
-    (``kops.step_hotness``). Each layer's attention goes through
-    ``kops.tiered_decode_attention`` on its slice of the tables. Where the
-    model takes RMSNorm, it also runs the glue kernels of
-    ``kernels.decode_glue``: RoPE's (or M-RoPE's) cos and sin once a step
-    (``step_rope``), and per layer two ``rmsnorm``s, one QKV epilogue
-    (biases, qk-norm, the rotation, the new k and v written into a step-wide
-    copy of the recent window) and the dense MLP's SiLU(gate) * up. Under
-    LayerNorm it keeps the plain chain of ops."""
+    class-bounds check once, outside a capture), RoPE's (or M-RoPE's) cos
+    and sin (``step_rope``) and a step-wide copy of the recent window. Per
+    attention layer it runs the glue of ``kernels.decode_glue``: two
+    ``rmsnorm``s, one QKV epilogue (biases, qk-norm, the rotation, the new k
+    and v written into the window copy) and the dense MLP's SiLU(gate) * up;
+    its attention goes through ``kops.tiered_decode_attention`` on its slice
+    of the tables, for the raw telemetry. After the last layer
+    ``kops.step_hotness`` normalises every layer's hotness at once."""
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
@@ -356,56 +353,38 @@ def make_tiered_decode_step(
     cb = int(ts_cfg.cold_bits)
     warm_cls = "c8" if wb == 8 else "c4"
     cold_cls = "c8" if cb == 8 else "c4"
-    glue = use_kernels and cfg.norm == "rmsnorm"
-    swiglu = glue_k.silu_mul if glue else layers.swiglu
 
     def norm(w, x):
-        if glue:
-            return glue_k.rmsnorm(w, x, cfg.norm_eps)
-        return layers.apply_norm(cfg.norm, w, x, cfg.norm_eps)
+        return glue_k.rmsnorm(w, x, cfg.norm_eps)
 
     def shared_operands(tkv: TieredKVState) -> dict:
-        """What every layer of a kernel step shares, made once at its top:
-        kernel #1's unified tables for every layer, the recent lengths it
-        reads, and each layer's raw telemetry as it comes; with the glue,
-        RoPE's cos and sin and the step's copy of the recent window."""
-        shared = {
+        """What every layer shares, made once at the step's top: kernel #1's
+        unified tables for every layer, the recent lengths it reads, RoPE's
+        cos and sin, the step's copy of the recent window, and each layer's
+        raw telemetry as it comes."""
+        return {
             "tables": kops.step_tables(
                 {"warm": {"page_table": tkv.warm_table, "n_pages": tkv.warm_n, "bits": wb},
                  "cold": {"page_table": tkv.cold_table, "n_pages": tkv.cold_n, "bits": cb}},
                 {"table": tkv.host_table, "n": tkv.host_n},
                 int(tkv.c8_k.shape[1]), int(tkv.c4_k.shape[1])),
             "recent_len": (tkv.recent_len + 1).contiguous(),
+            "rope": step_rope(cfg, tkv.total_len, tkv.total_len.device),
+            "recent": (tkv.recent_k.clone(), tkv.recent_v.clone()),
             "stats": [],  # each layer's (mass, base, m, l)
         }
-        if glue:
-            shared["rope"] = step_rope(cfg, tkv.total_len, dev)
-            shared["recent"] = (tkv.recent_k.clone(), tkv.recent_v.clone())
-        return shared
 
-    def attend_tiered(blk, x, layer_tkv, total_len, recent_len, shared, g):
+    def attend_tiered(blk, x, layer_tkv, recent_len, shared, g):
         """x [B,1,D]; one attention layer against pools + recent window.
         Each slot rotary-encodes at its own position and appends the new
-        token at its own dense-window offset."""
+        token at its own dense-window offset, in the step's window copy."""
         hn = norm(blk["norm1"], x)
         p = blk["attn"]
-        if glue:
-            recent_k, recent_v = (w[g] for w in shared["recent"])
-            q = glue_k.qkv_epilogue(
-                *attn_mod.qkv_products(p, hn), *shared["rope"], recent_k, recent_v, recent_len,
-                bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
-                qk_norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None, eps=cfg.norm_eps)
-        else:
-            q, k_new, v_new = attn_mod._project_qkv(p, cfg, hn, step_positions(cfg, total_len))
-            # Per-slot write at index recent_len[b] (an index beyond the
-            # window writes nothing, matching an inactive slot).
-            r = layer_tkv["recent_k"].shape[1]
-            at = torch.arange(r, dtype=torch.int32, device=x.device)[None, :] == recent_len[:, None]
-            at = at[:, :, None, None]  # [B, R, 1, 1]
-            recent_k = torch.where(at, k_new.to(layer_tkv["recent_k"].dtype),
-                                   layer_tkv["recent_k"])
-            recent_v = torch.where(at, v_new.to(layer_tkv["recent_v"].dtype),
-                                   layer_tkv["recent_v"])
+        recent_k, recent_v = (w[g] for w in shared["recent"])
+        q = glue_k.qkv_epilogue(
+            *attn_mod.qkv_products(p, hn), *shared["rope"], recent_k, recent_v, recent_len,
+            bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
+            qk_norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None, eps=cfg.norm_eps)
 
         # Class-major pools: pools of one codec class share the SAME tensor
         # object (the zero-concat contract ``ops._class_operands`` checks by
@@ -431,59 +410,36 @@ def make_tiered_decode_step(
             "n": layer_tkv["host_n"],
             "page_tokens": layer_tkv[f"{warm_cls}_k"].shape[1],
         }
-        if use_kernels:
-            # The hotness follows after the last layer (``kops.step_hotness``).
-            slot, tier, layout = shared["tables"]
-            out, stats = kops.tiered_decode_attention(
-                q[:, 0], pools, recent_k, recent_v, shared["recent_len"], cfg,
-                with_telemetry=True, host=host, table=(slot[g], tier[g], layout), raw=True,
-            )
-            shared["stats"].append(stats)
-            hot = None
-        else:
-            out, m_tot, l_tot, masses = kref.fused_tiered_attention(
-                q[:, 0], pools, recent_k, recent_v, recent_len + 1, host=host
-            )
-            hot = {
-                name: kops.page_hotness(mass, base, m_tot, l_tot)
-                for name, (mass, base) in masses.items()
-            }
+        slot, tier, layout = shared["tables"]
+        out, stats = kops.tiered_decode_attention(
+            q[:, 0], pools, recent_k, recent_v, shared["recent_len"], cfg,
+            with_telemetry=True, host=host, table=(slot[g], tier[g], layout), raw=True,
+        )
+        shared["stats"].append(stats)
         y = torch.einsum("bhk,hkd->bd", out.to(x.dtype), blk["attn"]["wo"])[:, None]
         if cfg.attn_out_bias:
             y = y + blk["attn"]["bo"]
-        return x + y, recent_k, recent_v, hot
+        return x + y
 
-    def attn_layer(blk, x, tkv, g, telemetry, new_recent, shared):
+    def attn_layer(blk, x, tkv, g, shared):
         """One attention layer (its MLP or MoE FFN included) over
         application ``g`` of the tiered state. The MoE FFN takes each slot
-        as a group of one token. Without the glue it collects the layer's
-        window and hotness; the kernel step's hotness follows once a step,
-        and the glue writes the window in place."""
+        as a group of one token."""
         layer_tkv = {f: getattr(tkv, f)[g] for f in LAYER_FIELDS}
-        x, rk, rv, hot = attend_tiered(blk, x, layer_tkv, tkv.total_len, tkv.recent_len, shared,
-                                       g)
+        x = attend_tiered(blk, x, layer_tkv, tkv.recent_len, shared, g)
         hn = norm(blk["norm2"], x)
-        x = x + block_ffn(blk, cfg, hn, swiglu)[0]
-        if not glue:
-            new_recent[0].append(rk)
-            new_recent[1].append(rv)
-        if hot is not None:
-            for k in telemetry:
-                telemetry[k].append(hot[k])
-        return x
+        return x + block_ffn(blk, cfg, hn, glue_k.silu_mul)[0]
 
     def step(params, token, tkv: TieredKVState, extra_state=None):
         x = params["embed"][token]
-        telemetry = {"warm": [], "cold": [], "host": []}
-        new_recent = ([], [])
-        shared = shared_operands(tkv) if use_kernels else {}
+        shared = shared_operands(tkv)
         if cfg.family == "hybrid":
             # The shared block's applications over the tiered KV, each
             # followed by its group of SSM layers.
             conv_states, ssm_states = extra_state
             new_conv, new_ssm = [], []
             for g, group in enumerate(ssm_groups(cfg)):
-                x = attn_layer(params["shared"], x, tkv, g, telemetry, new_recent, shared)
+                x = attn_layer(params["shared"], x, tkv, g, shared)
                 for li in group:
                     x, cv, ss = ssm_layer_decode(layer_params(params["blocks"], li), cfg, x,
                                                  conv_states[li], ssm_states[li])
@@ -492,12 +448,8 @@ def make_tiered_decode_step(
             extra_state = (torch.stack(new_conv), torch.stack(new_ssm))
         else:
             for li in range(tkv.recent_k.shape[0]):
-                x = attn_layer(layer_params(params["blocks"], li), x, tkv, li, telemetry,
-                               new_recent, shared)
-        if glue:
-            recent_k, recent_v = shared["recent"]
-        else:
-            recent_k, recent_v = torch.stack(new_recent[0]), torch.stack(new_recent[1])
+                x = attn_layer(layer_params(params["blocks"], li), x, tkv, li, shared)
+        recent_k, recent_v = shared["recent"]
         tkv = dataclasses.replace(
             tkv,
             recent_k=recent_k,
@@ -507,10 +459,7 @@ def make_tiered_decode_step(
         )
         x = norm(params["final_norm"], x)
         logits = model._head(params, x)
-        if use_kernels:
-            return logits, tkv, extra_state, kops.step_hotness(shared["stats"],
-                                                               shared["tables"][2])
-        return logits, tkv, extra_state, {k: torch.stack(v) for k, v in telemetry.items()}
+        return logits, tkv, extra_state, kops.step_hotness(shared["stats"], shared["tables"][2])
 
     return step
 

@@ -16,7 +16,8 @@ GPU every decode step runs the fused CUDA attention kernel in every
 attention layer (or, under ``ops.use_fused(False)``, one per-pool kernel per
 pool), the whole step captured once as a CUDA graph and replayed per token
 (``runtime.graph.GraphedStep``, the counterpart of the JAX engine's jitted
-step); on the CPU it runs the plain oracle eagerly, as the JAX engine does. A hybrid
+step); on the CPU the same step runs eagerly on the kernels' plain versions
+(the wrappers choose by the tensors' device). A hybrid
 arch (Zamba2) also carries each slot's SSM side state (conv, ssm) through
 the decode steps; its prefill reuses the SSM states ``Model.prefill``
 computes (the reference engine scans the prompt a second time for them, and
@@ -222,12 +223,12 @@ class TieredEngine:
             device=self.device,
             tracer=self.tracer,
         )
-        # The fused CUDA kernel on the GPU; the plain oracle on the CPU (the
-        # JAX engine's own choice, ``use_kernels=False``). On the GPU the
-        # step is captured once as a CUDA graph and replayed per token, as
-        # the JAX engine jits it; on the CPU it runs eagerly.
+        # One step body on every device: on the GPU its wrappers launch the
+        # kernels, and the step is captured once as a CUDA graph and replayed
+        # per token, as the JAX engine jits it; on the CPU the same body runs
+        # eagerly on the kernels' plain versions.
+        step = serve_rt.make_tiered_decode_step(model, ts, device=self.device)
         on_gpu = self.device.type == "cuda"
-        step = serve_rt.make_tiered_decode_step(model, ts, use_kernels=on_gpu, device=self.device)
         self._step_fn = GraphedStep(step, self.device) if on_gpu else step
         # SSM side state of a hybrid arch: (conv bf16, ssm f32) per layer
         # and slot; None for the dense family.

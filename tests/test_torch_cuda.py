@@ -1128,13 +1128,13 @@ def _same_step(got, want, what):
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graph_replay_matches_the_eager_kernel_step(gen, arch):
     """Every engine step (captured once, then replayed over page-outs and
-    window-boundary migrations) byte-equal to the eager kernel step on the
+    window-boundary migrations) byte-equal to the eager step on the
     same inputs; outputs never alias the graph's static buffers."""
     from repro_torch.runtime import serve
 
     eng = _graph_engine(arch)
     graphed = eng._step_fn
-    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device="cuda")
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, device="cuda")
     seen = []
 
     def checked(params, token, tkv, extra):
@@ -1167,7 +1167,7 @@ def test_graph_recaptures_on_route_change_and_moved_buffer(gen):
 
     eng = _graph_engine("qwen1_5_4b")
     graphed = eng._step_fn
-    eager = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=True, device="cuda")
+    eager = serve.make_tiered_decode_step(eng.model, eng.ts, device="cuda")
 
     def step_and_check():
         tok = torch.ones((eng.bs, 1), dtype=torch.int64, device="cuda")
@@ -1346,28 +1346,37 @@ def test_silu_mul_kernel_matches_plain(gen, arch, b):
 
 @pytest.mark.parametrize("arch", EPILOGUE_ARCHS)
 def test_captured_glue_step_matches_the_eager_plain_step(gen, arch):
-    """The engine's captured step on the glue kernels (the first call
-    captures, the next replay) against the eager plain branch on the same
-    state: logits within the model tests' bar, hotness within kernel #1's
-    2e-4."""
+    """The engine's captured step on the card (the first call captures, the
+    next replay) against the same step built on the CPU and run eagerly on
+    CPU copies of the params and the state, where every wrapper runs its
+    plain version: logits within the model tests' bar, hotness within
+    kernel #1's 2e-4, the windows' untouched rows equal."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.models import Model
     from repro_torch.runtime import serve
 
     eng = _graph_engine(arch)
     graphed = eng._step_fn
-    plain = serve.make_tiered_decode_step(eng.model, eng.ts, use_kernels=False, device="cuda")
+    plain = serve.make_tiered_decode_step(Model(eng.model.cfg, device="cpu"), eng.ts,
+                                          device="cpu")
+    params = pytree.tree_map(lambda t: t.cpu(), eng.params)
     for i in range(3):
         tok = torch.full((eng.bs, 1), 3 + i, dtype=torch.int64, device="cuda")
         st = eng.cache.state
+        on_cpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).cpu()
+                                            for f in dataclasses.fields(st)})
         lg, tkv, _, hot = graphed(eng.params, tok, st, None)
-        lw, tkw, _, hw = plain(eng.params, tok, st, None)
-        torch.testing.assert_close(lg.float(), lw.float(), rtol=0, atol=0.0625)
+        lw, tkw, _, hw = plain(params, tok.cpu(), on_cpu, None)
+        torch.testing.assert_close(lg.float().cpu(), lw.float(), rtol=0, atol=0.0625)
         for k in ("warm", "cold", "host"):
-            torch.testing.assert_close(hot[k], hw[k], rtol=2e-4, atol=2e-4)
-        assert torch.equal(tkv.recent_len, tkw.recent_len)
+            torch.testing.assert_close(hot[k].cpu(), hw[k], rtol=2e-4, atol=2e-4)
+        assert torch.equal(tkv.recent_len.cpu(), tkw.recent_len)
         # The windows differ only in the row each slot wrote.
         r = st.recent_k.shape[2]
-        kept = (torch.arange(r, device="cuda")[None] != st.recent_len[:, None].long())
+        kept = (torch.arange(r)[None] != on_cpu.recent_len[:, None].long())
         for f in ("recent_k", "recent_v"):
-            assert torch.equal(getattr(tkv, f)[:, kept], getattr(st, f)[:, kept])
-            assert torch.equal(getattr(tkw, f)[:, kept], getattr(st, f)[:, kept])
+            assert torch.equal(getattr(tkv, f).cpu()[:, kept], getattr(on_cpu, f)[:, kept])
+            assert torch.equal(getattr(tkw, f)[:, kept], getattr(on_cpu, f)[:, kept])
     assert graphed.replays == 2 and sum(graphed.captures.values()) == 1

@@ -1,6 +1,6 @@
 """The tiered decode step's once-a-step operands and glue kernels, on the CPU.
 
-The kernel branch of ``runtime.serve.make_tiered_decode_step`` builds kernel
+``runtime.serve.make_tiered_decode_step`` builds kernel
 #1's unified tables for every layer at once, at the top of the step, and
 normalises every layer's hotness at once after the last layer. These tests
 hold both bit-equal to the per-layer ``ops._unified_operands`` and
@@ -10,7 +10,7 @@ step's tables, with its raw telemetry, to the same call without them on
 both routes. They hold the plain versions of the glue kernels
 (``kernels.decode_glue``, which its wrappers run on CPU tensors) bit-equal to
 the chain of ops they replace: ``models.attention._project_qkv`` less its
-products, with the plain branch's recent-window write. And they count the
+products, with a ``torch.where`` recent-window write. And they count the
 launches a capture records: two ``rmsnorm`` a layer and the final one, one
 QKV epilogue and one SiLU * up a dense layer, added again by each replay,
 M-RoPE's step included. The kernels themselves are held to
@@ -193,7 +193,7 @@ def test_qkv_epilogue_plain_is_the_chain_it_replaces(arch, rows):
     """Biases, qk-norm and RoPE (M-RoPE for ``qwen2_vl_72b``) by the step's
     cos and sin (``serve.step_rope``), and the write
     into row ``recent_len[b]`` (nothing at or beyond the window of 16),
-    byte-equal to ``_project_qkv`` and the plain branch's ``torch.where``."""
+    byte-equal to ``_project_qkv`` and a ``torch.where`` row write."""
     cfg = get_smoke(arch)
     params = Model(cfg, device="cpu").init(0)
     g = torch.Generator().manual_seed(7)
@@ -262,7 +262,7 @@ def test_capture_records_the_glue_launches_once_per_layer(arch, monkeypatch):
     for n in (20, 13):
         eng.submit(rng.integers(1, model.cfg.vocab_size, n), max_new_tokens=4)
     eng._fill_slots()
-    step = serve.make_tiered_decode_step(model, ts, use_kernels=True, device="cpu")
+    step = serve.make_tiered_decode_step(model, ts, device="cpu")
     tok = torch.ones((2, 1), dtype=torch.int64)
     before = build.launch_counts()
     with build.recording_launches() as held:

@@ -37,6 +37,7 @@ from repro.models import Model as JModel  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
 from repro.serving.engine import TieredEngine as JEngine  # noqa: E402
 from repro_torch.configs import TierScapeRunConfig, get_smoke as port_smoke  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.media.faults import FaultPlan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy  # noqa: E402
@@ -124,11 +125,11 @@ def _port_state(jstate):
     })
 
 
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_tiered_decode_step_matches_reference(lockstep, use_kernels):
+@pytest.mark.parametrize("route", ["fused", "per_pool"])
+def test_tiered_decode_step_matches_reference(lockstep, route):
     """One decode step from the same (converted) mid-run state with warm,
-    cold and host pages: the plain branch and the kernel branch (its plain
-    version on the CPU) against the reference's step function. The
+    cold and host pages, on both attention routes (the kernels' plain
+    versions on the CPU), against the reference's step function. The
     reference step runs eagerly, op by op, so that it rounds to bf16 where
     PyTorch does (the engine's jitted step keeps excess f32 precision across
     fused ops, which moves q by up to a bf16 ulp and a page's hotness by
@@ -140,9 +141,12 @@ def test_tiered_decode_step_matches_reference(lockstep, use_kernels):
         ls.jm, make_mesh((1, 1), ("data", "model")), ParallelConfig(), JRunConfig(**RUN),
         use_kernels=False)
     jl, jtkv, _, jtel = jstep(ls.jp, jnp.asarray(tokens), jstate, ls.je.ssm_state)
-    step = serve.make_tiered_decode_step(ls.tm, TierScapeRunConfig(**RUN),
-                                         use_kernels=use_kernels, device="cpu")
-    tl, ttkv, _, ttel = step(ls.tp, torch.as_tensor(tokens), _port_state(jstate), None)
+    step = serve.make_tiered_decode_step(ls.tm, TierScapeRunConfig(**RUN), device="cpu")
+    ops.use_fused(route == "fused")
+    try:
+        tl, ttkv, _, ttel = step(ls.tp, torch.as_tensor(tokens), _port_state(jstate), None)
+    finally:
+        ops.use_fused(True)
     assert tl.shape == (ENGINE["batch_slots"], 1, ls.cfg.vocab_size)
     np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl.astype(jnp.float32)),
                                atol=LOGIT_ATOL, rtol=0)
@@ -279,6 +283,15 @@ def test_unported_family_raises():
             TieredEngine(model, {}, ts=ts, device="cpu")
         with pytest.raises(ValueError, match=match):
             serve.make_tiered_decode_step(model, ts, device="cpu")
+
+
+def test_tiered_step_refuses_layernorm():
+    """The tiered step's norms are the ``rmsnorm`` kernel: a model that takes
+    LayerNorm is refused with ValueError at construction."""
+    cfg = dataclasses.replace(port_smoke("qwen1_5_4b"), norm="layernorm")
+    with pytest.raises(ValueError, match="RMSNorm"):
+        serve.make_tiered_decode_step(Model(cfg, device="cpu"), TierScapeRunConfig(enabled=True),
+                                      device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -360,11 +360,11 @@ def _port_state(jstate):
     })
 
 
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_hybrid_tiered_decode_step_matches_reference(lockstep, use_kernels):
+@pytest.mark.parametrize("route", ["fused", "per_pool"])
+def test_hybrid_tiered_decode_step_matches_reference(lockstep, route):
     """One hybrid decode step from the same converted mid-run state (warm,
-    cold and host pages, SSM side state): the plain branch and the kernel
-    branch (its plain version on the CPU) against the reference's step run
+    cold and host pages, SSM side state), on both attention routes (the
+    kernels' plain versions on the CPU), against the reference's step run
     eagerly (``jax.disable_jit``, so that it rounds to bf16 where PyTorch
     does). Logits, hotness and the new SSM state within 2e-4."""
     from repro.configs import ParallelConfig
@@ -372,6 +372,7 @@ def test_hybrid_tiered_decode_step_matches_reference(lockstep, use_kernels):
     from repro.launch.mesh import make_mesh
     from repro.runtime import serve as jserve
     from repro_torch.configs import TierScapeRunConfig
+    from repro_torch.kernels import ops
     from repro_torch.models.convert import tensor_from_numpy
     from repro_torch.runtime import serve
 
@@ -383,12 +384,15 @@ def test_hybrid_tiered_decode_step_matches_reference(lockstep, use_kernels):
         use_kernels=False)
     with jax.disable_jit():
         jl, jtkv, (jconv, jsst), jtel = jstep(ls["jp"], jnp.asarray(tokens), jstate, jside)
-    step = serve.make_tiered_decode_step(ls["tm"], TierScapeRunConfig(**RUN),
-                                         use_kernels=use_kernels, device="cpu")
+    step = serve.make_tiered_decode_step(ls["tm"], TierScapeRunConfig(**RUN), device="cpu")
     side = tuple(tensor_from_numpy(np.asarray(a)) for a in jside)
     side_before = tuple(t.clone() for t in side)
-    tl, ttkv, (tconv, tsst), ttel = step(ls["tp"], torch.as_tensor(tokens), _port_state(jstate),
-                                         side)
+    ops.use_fused(route == "fused")
+    try:
+        tl, ttkv, (tconv, tsst), ttel = step(ls["tp"], torch.as_tensor(tokens),
+                                             _port_state(jstate), side)
+    finally:
+        ops.use_fused(True)
     assert all(torch.equal(a, b) for a, b in zip(side, side_before))  # input untouched
     assert tl.shape == (ENGINE["batch_slots"], 1, ls["cfg"].vocab_size)
     np.testing.assert_allclose(_f32(tl), _f32(jl), **HOT_TOL)

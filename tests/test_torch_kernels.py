@@ -191,6 +191,9 @@ CASES = {
     "empty_pools": ([(8, (0, 0)), (4, (0, 0))], True, (R, 1)),
     "all_host": ([], True, (R, 0)),
     "no_host": ([(4, (4, 4))], False, (R, R)),
+    # the int4 pool's columns are all past its valid prefix: no column of
+    # the unified table holds the int4 tier code
+    "int4_class_unheld": ([(8, (3, 2)), (4, (0, 0))], True, (R, 1)),
 }
 
 
@@ -234,7 +237,7 @@ def test_tiered_decode_attention_hotness_matches_reference(name):
     assert set(t_hot) == set(j_hot)
     for k in j_hot:
         np.testing.assert_allclose(t_hot[k].numpy(), np.asarray(j_hot[k]), err_msg=k, **TOL)
-    # The oracle the engine runs on the CPU gives the same hotness.
+    # The per-pool oracle (``ref.fused_tiered_attention``) gives the same hotness.
     port_pools, port_host = _to_port(pools), None if host is None else _to_port(host)
     o, m, lsum, masses = ref.fused_tiered_attention(_t(q), port_pools, _t(rk), _t(rv), _t(rlen),
                                                  host=port_host)

@@ -309,7 +309,8 @@ def test_op_stats_counts_every_loop_trip():
 
 
 @pytest.mark.parametrize("arch, shape", [("zamba2_1_2b", "decode_32k"),
-                                         ("internlm2_20b", "train_4k")])
+                                         ("internlm2_20b", "train_4k"),
+                                         ("qwen1_5_4b", "long_500k")])
 def test_dryrun_extrapolation_is_exact(arch, shape):
     """Counts from cut cells (depths, microbatches) extrapolate to the whole
     cell's count: the hybrid's shared block and grad accumulation included."""

@@ -227,14 +227,14 @@ def test_vlm_engine_matches_reference_on_equal_prompts(vlm, mode):
 
 def _one_step_logits(tm, tp, prompts, slots):
     """Prefill ``prompts`` into a fresh port engine of ``slots`` slots and
-    take one tiered decode step on its state (plain branch): logits [B, V]."""
+    take one tiered decode step on its state: logits [B, V]."""
     eng = TieredEngine(tm, tp, batch_slots=slots, ts=TierScapeRunConfig(**RUN), device="cpu",
                        **{k: v for k, v in ENGINE.items() if k != "batch_slots"})
     for p in prompts:
         eng.submit(p, max_new_tokens=NEW_TOKENS)
     eng._fill_slots()
     assert eng.cache.state.total_len.tolist() == [len(p) for p in prompts]
-    step = serve.make_tiered_decode_step(tm, eng.ts, use_kernels=False, device="cpu")
+    step = serve.make_tiered_decode_step(tm, eng.ts, device="cpu")
     tokens = torch.as_tensor([[r.out_tokens[-1]] for r in eng.slots])
     logits, _, _, _ = step(tp, tokens, eng.cache.state, eng.ssm_state)
     return logits[:, 0]
